@@ -1,0 +1,508 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels
+from this checkout, holds each against its plain PyTorch version, drives
+Tekkenizer.encode_batch at the full width of Tekken V7, and checks the
+tokens against the oracle.
+
+    python3 chip_smoke.py
+
+Phases:
+1. the card's name and power limit; nvcc builds of both kernels, in
+   parallel;
+2. the full-width configuration: 130,872 inner ranks + 1,000 specials
+   from prefix chains over 40,000 random words (bench.py's builders,
+   copied here), and its device tables;
+3. each kernel against its plain version, bit for bit, on the card:
+   stage 1 with rules simple / general / external at (1024, 2048) and a
+   long-row case at R = 2^16; the merge at P = 4, 8, 32, fixed and looped;
+4. the main path: encode_batch on a route-1 batch (4096 x 2048, the
+   bench shape, with out-of-vocabulary words so the P=4 and P=8 merge
+   buckets and the host splice run), a route-2 and a route-3 batch
+   (1024 x 2048 each) and a mixed batch with 1% non-ASCII docs.  The
+   launch counts are zeroed just before and read just after; a sample
+   of 64 docs per batch is held against the oracle; throughput, the
+   device time and a per-stage breakdown are printed;
+5. the kernels at the main path's own inputs: kernel time, plain time,
+   bound, and one JSON line ``{"kernels": [...]}``;
+6. the last line: ``{"ok": true, "device": {...}}``.
+
+Any failure raises and exits non-zero.  Without a GPU the script exits
+non-zero before printing anything.
+"""
+
+import base64
+import json
+import random
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+             "False); this script runs only on a GPU")
+
+import tekken_tpu_torch as tt  # noqa: E402
+from tekken_tpu_torch import _build  # noqa: E402
+from tekken_tpu_torch.oracle import encode_ranks  # noqa: E402
+from tekken_tpu_torch.ops import packed as packed_mod  # noqa: E402
+from tekken_tpu_torch.ops.bpe import INF, merge_rows_compact  # noqa: E402
+from tekken_tpu_torch.ops.merge import merge_rows_compact_fused  # noqa: E402
+from tekken_tpu_torch.ops.pretokenize import byte_boundaries  # noqa: E402
+from tekken_tpu_torch.ops.stage1 import (  # noqa: E402
+    stage1_compact, stage1_compact_reference)
+from tekken_tpu_torch.special_tokens import (  # noqa: E402
+    get_deprecated_special_tokens)
+
+DEV = torch.device("cuda")
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+INT32_OPS_PER_S = 33.5e12      # H100 SXM: 64 INT32 lanes/SM/clock, 132 SMs
+N_SPECIAL = 1000
+# the configuration's scale: bench.py's shape (B_MAIN x ROW bytes) and
+# vocabulary; the route-2/3 batches and the parity cases take B_SIDE rows
+N_WORDS, INNER_VOCAB = 40_000, 130_872
+B_MAIN, B_SIDE, ROW, LONG_ROW = 4096, 1024, 2048, 1 << 16
+
+KERNELS = {
+    "stage1_compact": ("tekken_tpu_torch/csrc/stage1_compact.cu",
+                       "tekken_tpu/ops/pallas_stage1.py:152"),
+    "merge_rows": ("tekken_tpu_torch/csrc/merge_rows.cu",
+                   "tekken_tpu/ops/pallas_merge.py:52"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# --------------------------------------------------------------------- #
+# the full-width configuration (copies of bench.py:62-108)
+# --------------------------------------------------------------------- #
+
+def build_bench_vocab(words, inner_vocab):
+    """Byte tokens + prefix-chain tokens for corpus words (each token splits
+    into (prefix, last byte)); bare and space-prefixed chains."""
+    tokens: list[bytes] = [bytes([i]) for i in range(256)]
+    seen = set(tokens)
+    full = False
+    for w in words:
+        for b in (b" " + w.encode("utf-8"), w.encode("utf-8")):
+            for k in range(2, len(b) + 1):
+                t = b[:k]
+                if t not in seen:
+                    seen.add(t)
+                    tokens.append(t)
+                if len(tokens) >= inner_vocab:
+                    full = True
+                    break
+            if full:
+                break
+        if full:
+            break
+    return [tt.TokenInfo(rank=r, token_bytes=base64.b64encode(t).decode(),
+                         token_str=None) for r, t in enumerate(tokens)]
+
+
+def build_corpus(words, rng, n_docs, doc_len):
+    docs = []
+    for _ in range(n_docs):
+        parts = []
+        size = 0
+        while size < doc_len - 16:
+            w = words[min(int(rng.paretovariate(1.1)) - 1, len(words) - 1)]
+            parts.append(w)
+            size += len(w) + 1
+            if rng.random() < 0.1:
+                parts.append(str(rng.randint(0, 999)))
+                size += 4
+            if rng.random() < 0.15:
+                parts[-1] += rng.choice(".,!?;:")
+        docs.append(" ".join(parts)[:doc_len])
+    return docs
+
+
+# --------------------------------------------------------------------- #
+# main-path traffic
+# --------------------------------------------------------------------- #
+
+def oov_word(rng, ranks, lo, hi):
+    """A lowercase word whose space-prefixed piece is not a vocab token."""
+    while True:
+        w = "".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
+                    for _ in range(rng.randint(lo, hi)))
+        if (" " + w).encode() not in ranks and w.encode() not in ranks:
+            return w
+
+
+def clip_bytes(doc, n):
+    return doc.encode("utf-8")[:n].decode("utf-8", "ignore")
+
+
+def route1_batch(words, rng, ranks, B, R):
+    """Bench corpus with ~2% of the words replaced by out-of-vocabulary
+    words of 3-8 letters (4-9-byte misses: the P=4 and P=8 buckets) and
+    ~0.2% by words of 9-14 letters (host-spliced spans)."""
+    out = []
+    for d in build_corpus(words, rng, B, R):
+        ws = d.split(" ")
+        for i in range(len(ws)):
+            x = rng.random()
+            if x < 0.02:
+                ws[i] = oov_word(rng, ranks, 3, 8)
+            elif x < 0.022:
+                ws[i] = oov_word(rng, ranks, 9, 14)
+        out.append(" ".join(ws)[:R])
+    return out
+
+
+def route2_batch(words, rng, B, R):
+    out = []
+    for d in build_corpus(words, rng, B, R - 64):
+        ws = d.split(" ")
+        for i in range(0, len(ws), 9):
+            ws[i] += "  " if rng.random() < 0.5 else f" {rng.randint(1000, 9999999)}"
+        out.append(" ".join(ws)[:R])
+    return out
+
+
+UTF8_WORDS = ["café", "naïve", "über", "中文", "日本語", "😀", "Ελληνικά",
+              "Русский", "mañana", "한국어", "🚀🎉"]
+
+
+def route3_batch(words, rng, B, R):
+    out = []
+    for d in build_corpus(words, rng, B, R):
+        ws = d.split(" ")
+        for i in range(len(ws)):
+            if rng.random() < 0.1:
+                ws[i] = rng.choice(UTF8_WORDS)
+        out.append(clip_bytes(" ".join(ws), R))
+    return out
+
+
+# --------------------------------------------------------------------- #
+# measurement helpers
+# --------------------------------------------------------------------- #
+
+def cuda_ms(fn, reps):
+    """Mean device time of fn() over reps calls after one warm-up, by CUDA
+    events."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def max_abs_err(got, want):
+    err = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype {g.shape} {g.dtype} vs "
+                                 f"{w.shape} {w.dtype}")
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                               .abs().max()))
+    return err
+
+
+def check_equal(name, got, want):
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version (max abs err {err})")
+    return err
+
+
+def stage1_bound_ms(byts, n_words, rules):
+    B, R = byts.shape
+    nw = max(n_words, 1)
+    moved = B * R * (2 if rules == "external" else 1) + 4 * B   # in
+    moved += (3 + nw) * B * R * 4 + 4 * B                        # out
+    # ~64 integer operations per byte for the rules, scans and records
+    ops = 64 * B * R
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def merge_bound_ms(rank, n_in, n_out):
+    B2, P = rank.shape
+    merges = int((n_in - n_out).sum())
+    # rank + pr read, rank written, n read + written; each merge reads at
+    # least one 16-byte cuckoo row for each of its two probes
+    moved = 3 * B2 * P * 4 + 8 * B2 + merges * 2 * 16
+    ops = merges * (4 * P + 40)       # argmin over P lanes, hashes, shifts
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+class Capture:
+    """Records the inputs the main path passes to a kernel wrapper and
+    calls the real wrapper (the launch is counted there, once)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def spy(*args, **kw):
+            self.calls.append((args, kw))
+            return self.real(*args, **kw)
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+# --------------------------------------------------------------------- #
+
+def main():
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    card = torch.cuda.get_device_name(0)
+    log(f"[card] {smi}")
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"devices {torch.cuda.device_count()}")
+
+    # ---- 1. build both kernels in parallel ----
+    t0 = time.perf_counter()
+    built = _build.build()
+    log(f"[build] both kernels in {time.perf_counter() - t0:.2f} s")
+    for name, info in built.items():
+        log(f"[build] {name}: {info['seconds']:.2f} s "
+            f"cached={info['cached']}")
+        for ln in info["ptxas"].splitlines():
+            log(f"[build]   {ln.strip()}")
+
+    # ---- 2. full-width configuration ----
+    t0 = time.perf_counter()
+    rng = random.Random(1234)
+    words = ["".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
+                     for _ in range(rng.randint(2, 11)))
+             for _ in range(N_WORDS)]
+    vocab = build_bench_vocab(words, INNER_VOCAB)
+    tok = tt.Tekkenizer(vocab=vocab,
+                        special_tokens=get_deprecated_special_tokens(),
+                        pattern=".*", vocab_size=len(vocab) + N_SPECIAL,
+                        num_special_tokens=N_SPECIAL,
+                        version=tt.TokenizerVersion.V7, device="cuda")
+    t1 = time.perf_counter()
+    tabs = tok.device_tables()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"[config] vocab {len(vocab)} inner ranks + {N_SPECIAL} specials "
+        f"in {t1 - t0:.1f} s; device tables in {t2 - t1:.1f} s: cuckoo "
+        f"{tuple(tabs.packed.shape)}, word map {tuple(tabs.word_rows.shape)}")
+    ranks = tok.ranks
+
+    rng = random.Random(99)
+    batches = {
+        "route1_bench": route1_batch(words, rng, ranks, B_MAIN, ROW),
+        "route2": route2_batch(words, rng, B_SIDE, ROW),
+        "route3": route3_batch(words, rng, B_SIDE, ROW),
+    }
+    mixed = route1_batch(words, rng, ranks, B_MAIN, ROW)
+    n_utf8 = max(1, B_MAIN // 100)
+    utf8 = route3_batch(words, rng, n_utf8, ROW)
+    for k, i in enumerate(rng.sample(range(B_MAIN), n_utf8)):
+        mixed[i] = utf8[k]
+    batches["mixed_1pct_utf8"] = mixed
+    log(f"[config] traffic built; total {time.perf_counter() - t0:.1f} s")
+
+    # ---- 3. kernels against their plain versions on the card ----
+    def rows(texts, R):
+        buf = np.zeros((len(texts), R), np.uint8)
+        lens = np.zeros(len(texts), np.int32)
+        for i, t in enumerate(texts):
+            d = t.encode("utf-8")[:R]
+            buf[i, :len(d)] = np.frombuffer(d, np.uint8)
+            lens[i] = len(d)
+        return torch.from_numpy(buf).to(DEV), torch.from_numpy(lens).to(DEV)
+
+    nw_main = tabs.n_words
+    wsize = tabs.word_rows.shape[0]
+    long_txt = " ".join(batches["route1_bench"][:40])
+    long_utf8 = " ".join(batches["route3"][:40])
+    r1 = batches["route1_bench"]
+    s1_cases = [
+        ("simple", rows(r1[:B_SIDE], ROW), nw_main),
+        ("general", rows(batches["route2"], ROW), nw_main),
+        ("external", rows(batches["route3"], ROW), nw_main),
+        ("simple", rows(r1[B_SIDE:2 * B_SIDE], ROW), 6),
+        ("simple", rows([long_txt[:LONG_ROW - 7 * k] for k in range(16)],
+                        LONG_ROW), nw_main),
+        ("external", rows([clip_bytes(long_utf8, LONG_ROW - 5 * k)
+                           for k in range(16)], LONG_ROW), nw_main),
+    ]
+    for rules, (b, ln), nw in s1_cases:
+        kw = {"boundary": byte_boundaries(b, ln)} if rules == "external" else {}
+        got = stage1_compact(b, ln, nw, wsize, tabs.wseed, rules, **kw)
+        want = stage1_compact_reference(b, ln, nw, wsize, tabs.wseed, rules,
+                                        **kw)
+        torch.cuda.synchronize()
+        check_equal(f"stage1 {rules} {tuple(b.shape)}", got, want)
+        log(f"[parity] stage1_compact rules={rules} (B,R)={tuple(b.shape)} "
+            f"n_words={nw}: identical, {int(got[-1].sum())} pieces")
+
+    g = np.random.default_rng(5)
+    for P in (4, 8, 32):
+        B2 = 2 * B_MAIN
+        n0 = g.integers(0, P + 1, B2).astype(np.int32)
+        letters = np.frombuffer(b"etaoinshrdlucmwfgypbvkjxqz ", np.uint8)
+        rank = g.choice(letters, size=(B2, P)).astype(np.int32)
+        rank[np.arange(P)[None, :] >= n0[:, None]] = -1
+        r = torch.from_numpy(rank).to(DEV)
+        n = torch.from_numpy(n0).to(DEV)
+        right = torch.cat([r[:, 1:], torch.full_like(r[:, :1], -1)], 1)
+        lanes = torch.arange(P, device=DEV)[None, :]
+        q_ok = (lanes + 1 < n[:, None]) & (r >= 0) & (right >= 0)
+        pr = torch.where(q_ok, tabs.dense[torch.where(q_ok, r * 256 + right,
+                                                      0)], INF).to(torch.int32)
+        for fixed in (P - 1, None):
+            got = merge_rows_compact_fused(r, pr, n, tabs.packed, tabs.seed1,
+                                           tabs.seed2, fixed_rounds=fixed)
+            want = merge_rows_compact(r, pr, n, tabs.packed, tabs.seed1,
+                                      tabs.seed2, fixed_rounds=fixed)
+            torch.cuda.synchronize()
+            check_equal(f"merge P={P} fixed={fixed}", got, want)
+            log(f"[parity] merge_rows P={P} rows={B2} fixed_rounds={fixed}: "
+                f"identical, {int((n - got[1]).sum())} merges")
+
+    # ---- 4. the main path ----
+    launches = {k: 0 for k in _build.LAUNCHES}
+    captured = {}
+    results = {}
+    for name, texts in batches.items():
+        nbytes = sum(len(t.encode("utf-8")) for t in texts)
+        with Capture(packed_mod, "stage1_compact") as c1, \
+                Capture(packed_mod, "merge_rows_compact_fused") as c2:
+            _build.reset_launches()
+            out = tok.encode_batch(texts)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+        captured[name] = (c1.calls, c2.calls)
+        for k, v in counts.items():
+            launches[k] += v
+        stats = tok.last_batch_stats
+        if len(out) != len(texts):
+            raise AssertionError(f"{name}: {len(out)} results for "
+                                 f"{len(texts)} docs")
+        sample = random.Random(len(name)).sample(range(len(texts)), 64)
+        for i in sample:
+            want = [r + N_SPECIAL for r in encode_ranks(texts[i], ranks)]
+            if out[i] != want:
+                raise AssertionError(f"{name}: doc {i} differs from the "
+                                     f"oracle")
+        n_tok = sum(len(x) for x in out)
+
+        # end to end (host pack + device + readback + host splice), the
+        # median of 5 calls after the checked one
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            tok.encode_batch(texts)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        walls.sort()
+        e2e = walls[len(walls) // 2]
+        clock = packed_mod.StageClock()
+        tok.encode_batch(texts, clock=clock)
+        # the stages that run on the card (each mark synchronizes)
+        dev_ms = sum(clock.times.get(k, 0.0) for k in (
+            "utf8_flags", "stage1", "probe_emit", "p23", "merge")) * 1e3
+        results[name] = {
+            "docs": len(texts), "bytes": nbytes, "tokens": n_tok,
+            "launches": counts, "overflow_rows": stats["overflow_rows"],
+            "fb_spans": stats["fb_spans"], "e2e_s": e2e,
+            "e2e_MB_per_s": nbytes / e2e / 1e6, "e2e_min_max_s":
+            [walls[0], walls[-1]], "device_ms": dev_ms,
+            "stages_ms": {k: v * 1e3 for k, v in clock.times.items()},
+        }
+        log(f"[main] {name}: {len(texts)} docs, {nbytes} bytes, {n_tok} "
+            f"tokens; launches {counts}; overflow rows "
+            f"{stats['overflow_rows']}, fb spans {stats['fb_spans']}; "
+            f"64-doc oracle sample identical")
+        log(f"[main] {name}: end to end median of 5 {e2e * 1e3:.1f} ms "
+            f"(min {walls[0] * 1e3:.1f}, max {walls[-1] * 1e3:.1f}) = "
+            f"{nbytes / e2e / 1e6:.2f} MB/s; device path {dev_ms:.2f} ms; "
+            "stages ms " + json.dumps(
+                {k: round(v * 1e3, 3) for k, v in clock.times.items()}))
+    log(f"[main] launches over the main path: {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the main "
+                                 f"path")
+
+    # ---- 5. the kernels at the main path's own inputs ----
+    s1_calls, m_calls = captured["route1_bench"]
+    (b, ln, nw, ws_, wseed_), kw = s1_calls[0][0], s1_calls[0][1]
+    rules = kw.get("rules", "simple")
+    got = stage1_compact(b, ln, nw, ws_, wseed_, **kw)
+    want = stage1_compact_reference(b, ln, nw, ws_, wseed_, **kw)
+    err1 = check_equal("stage1 main path", got, want)
+    ms1 = cuda_ms(lambda: stage1_compact(b, ln, nw, ws_, wseed_, **kw), 20)
+    plain1 = cuda_ms(lambda: stage1_compact_reference(b, ln, nw, ws_, wseed_,
+                                                      **kw), 3)
+    bound1, by1 = stage1_bound_ms(b, nw, rules)
+    log(f"[kernel] stage1_compact at {tuple(b.shape)} rules={rules}: "
+        f"{ms1:.4f} ms, plain {plain1:.3f} ms, bound {bound1:.4f} ms ({by1})")
+
+    if not m_calls:
+        raise AssertionError("the route-1 batch launched no merge")
+    tot_ms = tot_plain = tot_bound = 0.0
+    err2 = 0
+    by_max = (0.0, "bytes")
+    for (r, pr, n, packed, s1, s2), kw in m_calls:
+        got = merge_rows_compact_fused(r, pr, n, packed, s1, s2, **kw)
+        want = merge_rows_compact(r, pr, n, packed, s1, s2, **kw)
+        err2 = max(err2, check_equal("merge main path", got, want))
+        ms = cuda_ms(lambda: merge_rows_compact_fused(r, pr, n, packed, s1,
+                                                      s2, **kw), 20)
+        pm = cuda_ms(lambda: merge_rows_compact(r, pr, n, packed, s1, s2,
+                                                **kw), 3)
+        bnd, by2 = merge_bound_ms(r, n, got[1])
+        tot_ms, tot_plain, tot_bound = tot_ms + ms, tot_plain + pm, tot_bound + bnd
+        by_max = max(by_max, (bnd, by2))
+        log(f"[kernel] merge_rows at {tuple(r.shape)} "
+            f"fixed_rounds={kw.get('fixed_rounds')}: {ms:.4f} ms, plain "
+            f"{pm:.3f} ms, bound {bnd:.5f} ms ({by2}), "
+            f"{int((n - got[1]).sum())} merges")
+    k = len(m_calls)
+    line = {"kernels": [
+        {"name": "stage1_compact", "route": "cuda",
+         "source": KERNELS["stage1_compact"][0],
+         "replaces": KERNELS["stage1_compact"][1],
+         "launches": launches["stage1_compact"], "max_abs_err": err1,
+         "ms": ms1, "plain_ms": plain1, "bound_ms": bound1, "bound_by": by1,
+         "library_ms": None},
+        {"name": "merge_rows", "route": "cuda",
+         "source": KERNELS["merge_rows"][0],
+         "replaces": KERNELS["merge_rows"][1],
+         "launches": launches["merge_rows"], "max_abs_err": err2,
+         "ms": tot_ms / k, "plain_ms": tot_plain / k,
+         "bound_ms": tot_bound / k, "bound_by": by_max[1],
+         "library_ms": None},
+    ]}
+    log("[main] per-batch summary " + json.dumps(results))
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(f"{smi}")
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

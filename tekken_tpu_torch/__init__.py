@@ -1,0 +1,33 @@
+"""tekken_tpu_torch: the Tekken tokenizer on PyTorch and CUDA (NVIDIA H100).
+
+The port of the JAX package ``tekken_tpu``, which stays beside it as the
+reference.  This package imports torch and never jax, and nothing of the
+JAX package.  Its batched encode runs the packed pipeline on the GPU with
+two kernels written by hand for Hopper (``csrc/``, built with nvcc at
+first use); on CPU tensors the same functions run their plain PyTorch
+versions.
+"""
+
+from .config import ModelData, TekkenConfig, TokenInfo, TokenizerVersion
+from .errors import (
+    AudioError,
+    Base64Error,
+    InvalidConfigError,
+    IoError,
+    JsonError,
+    SpecialTokenPolicyError,
+    TokenizerError,
+    TokenizersError,
+    TokenNotFoundError,
+    UnsupportedFormatError,
+)
+from .special_tokens import SpecialTokenInfo, SpecialTokenPolicy, SpecialTokens
+from .tekkenizer import Tekkenizer
+
+__all__ = [
+    "AudioError", "Base64Error", "InvalidConfigError", "IoError",
+    "JsonError", "ModelData", "SpecialTokenInfo", "SpecialTokenPolicy",
+    "SpecialTokenPolicyError", "SpecialTokens", "TekkenConfig",
+    "Tekkenizer", "TokenInfo", "TokenNotFoundError", "TokenizerError",
+    "TokenizerVersion", "TokenizersError", "UnsupportedFormatError",
+]

@@ -1,0 +1,147 @@
+"""Build and load the CUDA kernels of the port (nvcc + ctypes).
+
+Each ``csrc/*.cu`` file compiles on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
+
+The library name carries a hash of the source and flags, so an edited
+source is rebuilt and a stale library is never loaded.  Nothing is built
+when the package is imported: the first wrapper call on a CUDA tensor
+builds what it needs, and ``build()`` builds every kernel at once, one
+nvcc process per source, all started together.
+
+``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
+it launches its kernel and nowhere else, so a caller can zero the counts,
+run the encode path and read which kernels it went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+SRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint
+
+# kernel name -> (source, C entry point, argtypes, error-string function)
+KERNELS = {
+    "stage1_compact": (
+        "stage1_compact.cu", "tk_stage1_compact",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _P, _P, _P],
+        "tk_stage1_error"),
+    "merge_rows": (
+        "merge_rows.cu", "tk_merge_rows",
+        [_P, _P, _P, _P, _U, _U, _U, _I, _I, _I, _I, _P, _P, _P],
+        "tk_merge_error"),
+}
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+# name -> nvcc's report (seconds, ptxas register/shared-memory lines)
+BUILD_LOG: dict[str, dict] = {}
+
+_libs: dict[str, tuple] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand:
+            path = os.path.join(cand, "bin", "nvcc")
+            if os.path.exists(path):
+                return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(SRC_DIR, KERNELS[name][0])
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def build(names=None) -> dict[str, dict]:
+    """Compile the named kernels (all by default) that are not built yet,
+    one nvcc per source, all in parallel.  Returns BUILD_LOG for them."""
+    names = list(KERNELS) if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            BUILD_LOG.setdefault(name, {"seconds": 0.0, "cached": True,
+                                        "ptxas": ""})
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(SRC_DIR, KERNELS[name][0])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        ptxas = "\n".join(ln for ln in log.splitlines()
+                          if "registers" in ln or "Compiling" in ln)
+        BUILD_LOG[name] = {"seconds": secs, "cached": False, "ptxas": ptxas}
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return {n: BUILD_LOG[n] for n in names}
+
+
+def entry(name: str):
+    """(C entry point, error-string function) of a kernel, building and
+    loading its library on first use."""
+    with _lock:
+        got = _libs.get(name)
+        if got is None:
+            build([name])
+            _, fn_name, argtypes, err_name = KERNELS[name]
+            lib = ctypes.CDLL(_lib_path(name))
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, err_name)
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            got = _libs[name] = (lib, fn, err)
+    return got[1], got[2]
+
+
+def launch(name: str, *args) -> None:
+    """Call a kernel's C entry point; raise on a launch error; count it."""
+    fn, err = entry(name)
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{err(rc).decode()} ({rc})")
+    LAUNCHES[name] += 1

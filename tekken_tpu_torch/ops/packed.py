@@ -1,0 +1,526 @@
+"""Packed batched encode on the device: the port's main path.
+
+The counterpart of the JAX package's ops/packed.py, routed pipeline only
+(routes 1-3, device merge, default settings).  A (B, R) buffer of
+document rows goes through:
+
+1. stage 1 (ops/stage1.py, a CUDA kernel): piece-start flags (simple or
+   general ASCII rules in-kernel, or route 3's UTF-8 flags from
+   ``byte_boundaries``), piece lengths, content dwords, the word-probe
+   slot, and the pieces left-compacted per row;
+2. the word-exact probe on a (B, C) window (C a tier over the densest
+   row): a piece that IS a vocab token of 2..12 (24) bytes is one row
+   gather + compares; single bytes are their own token;
+3. the bucket build: vocab misses are numbered per length class (2-3,
+   4, 5-8, > 8 bytes) and written into disjoint row ranges of one table;
+4. the P23 tier: 2-3-byte misses resolve with one dense-table gather and
+   one cuckoo probe;
+5. the merge buckets: 4-byte and 5-8-byte misses (and longer ones up to
+   ``fb_len_limit``) merge in (rows, P) compact-shift matrices through the
+   merge kernel (ops/merge.py);
+6. on the host: misses longer than ``fb_len_limit`` are merged and
+   spliced at their spans, and rows whose pieces overflowed a bucket are
+   re-encoded exactly.
+
+The JAX package picks its tiers with ``lax.cond`` ladders; here each count
+is read once to the host and the same tier is taken in Python, so every
+capacity (and with it ``overflow`` and ``row_bad``) is the reference's.
+One departure: the long bucket's tier covers every row it fills (fallback
+rows included), not just the mergeable ones (ROADMAP.md, queue 3).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from .bpe import INF, probe2
+from .merge import merge_rows_compact_fused
+from .pretokenize import byte_boundaries, row_valid
+from .stage1 import stage1_compact
+
+__all__ = ["P_LANES", "P_SHORT", "PackedEncoder", "StageClock",
+           "default_np_cap", "doc_routes", "host_route", "oracle_merge_fn",
+           "packed_encode", "probe2", "splice_host_merges"]
+
+P_LANES = 32
+P_SHORT = 8
+
+# C-window ladder as fractions of R: prose runs ~R/5.5 pieces per row
+C_FRACTIONS = (0.125, 0.15625, 0.1953125, 0.25, 0.3125, 0.390625, 0.5,
+               0.625, 0.78125, 1.0)
+
+
+def default_np_cap(n_bytes: int) -> int:
+    """Default merge-matrix row capacity for an n_bytes buffer (counts only
+    vocab-miss pieces).  NP sizes the P=4 bucket and the P23 tier; the P=8
+    bucket gets NP/2 and the P=32 bucket NP/8.  A batch whose misses of a
+    class exceed its bucket flags overflow, and its rows re-encode exactly
+    on the host."""
+    return max(64, n_bytes // 8)
+
+
+class StageClock:
+    """Per-stage wall time of one encode, for measurement only.  Each mark
+    synchronizes the device first, so a stage's time includes its device
+    work; pass none on the production path."""
+
+    def __init__(self):
+        self.times: dict[str, float] = {}
+        self._t = time.perf_counter()
+
+    def mark(self, name: str, device=None) -> None:
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        self.times[name] = self.times.get(name, 0.0) + (t - self._t)
+        self._t = t
+
+
+def _mark(clock, name, device=None):
+    if clock is not None:
+        clock.mark(name, device)
+
+
+def _tier(count: int, tiers) -> int:
+    """The smallest tier holding ``count`` rows (the largest if none)."""
+    tiers = sorted(set(tiers))
+    for t in tiers[:-1]:
+        if count <= t:
+            return t
+    return tiers[-1]
+
+
+def packed_encode(byts, lengths, tables, route: int, np_cap: int | None = None,
+                  fb_len_limit: int = P_SHORT, clock=None):
+    """Encode a (B, R) uint8 buffer of document rows with a host-chosen
+    route (1 simple ASCII / 2 general ASCII / 3 UTF-8).
+
+    Returns (tok, n_out, fb_start, fb_len, overflow, row_bad):
+    tok int32 (B*R,) — tok[i] >= 0 is the token placed at flat byte i, in
+    byte order; n_out its count (0-d tensor); fb_start / fb_len (NP32,)
+    the byte spans of misses longer than ``fb_len_limit`` (-1 / 0 = none),
+    which the host merges and splices; overflow (int) nonzero when a
+    bucket overflowed; row_bad int32 (B,) the rows holding dropped pieces,
+    which the host re-encodes."""
+    if route not in (1, 2, 3):
+        raise ValueError(f"route must be 1, 2 or 3, got {route!r} (the "
+                         f"unrouted flat path is not ported)")
+    if not 1 <= fb_len_limit <= P_LANES:
+        raise ValueError(f"fb_len_limit must be in 1..{P_LANES}")
+    B, R = byts.shape
+    N = B * R
+    NP = np_cap if np_cap is not None else max(64, N // 16)
+    return _compact_encode(byts, lengths, tables, NP, route, fb_len_limit,
+                           clock)
+
+
+def _compact_encode(byts, lengths, tables, NP: int, route: int,
+                    fb_len_limit: int, clock):
+    B, R = byts.shape
+    N = B * R
+    dev = byts.device
+    # bucket rows pack compact indices j < N shifted by 2 bits
+    if N >= (1 << 29):
+        raise ValueError(f"buffer of {N} bytes exceeds 2^29")
+    i64 = torch.int64
+
+    if tables.wseed:
+        n_words, maxl = tables.n_words, tables.max_word_len
+        wsize = tables.word_rows.shape[0]
+    else:
+        n_words, maxl, wsize = 0, 0, 1
+
+    if route == 3:
+        bound = byte_boundaries(byts, lengths)
+        _mark(clock, "utf8_flags", dev)
+        st, pl, sl, *wsc, cnt = stage1_compact(
+            byts, lengths, n_words, wsize, tables.wseed, rules="external",
+            boundary=bound)
+    else:
+        st, pl, sl, *wsc, cnt = stage1_compact(
+            byts, lengths, n_words, wsize, tables.wseed,
+            rules="general" if route == 2 else "simple")
+    cmax = int(cnt.max()) if B else 0
+    _mark(clock, "stage1", dev)
+
+    valid = row_valid(byts, lengths).reshape(N)
+    byte_rank = torch.where(valid, byts.reshape(N).to(i64), -1)
+
+    NP4 = NP
+    NP8 = max(64, NP // 2)
+    NP32 = max(64, NP // 8)
+    NP3 = NP           # 2-3-byte misses dominate real corpora
+    NPM = NP4 + NP8 + NP32
+    NPT = NPM + NP3
+
+    # --- C window: the smallest tier covering the densest row ---
+    C = _tier(cmax, {min(R, max(64, int(R * f))) for f in C_FRACTIONS})
+    stc, plc, slc = st[:, :C], pl[:, :C], sl[:, :C]
+    wsC = [w[:, :C] for w in wsc]
+    live = stc >= 0
+    row_base = (torch.arange(B, dtype=i64, device=dev) * R)[:, None]
+    fstart = torch.where(live, stc.to(i64) + row_base, -1)        # (B, C)
+
+    # --- word-exact whole-piece probe, piece granularity ---
+    if n_words:
+        rowv = tables.word_rows[slc.clamp(0, wsize - 1).to(i64)]  # (B, C, W)
+        meta = rowv[..., n_words]
+        ok = live & (meta >= 0) & ((meta & 31) == plc)
+        for k in range(n_words):
+            ok = ok & (rowv[..., k] == wsC[k])
+        hit = ok & (plc >= 2) & (plc <= maxl)
+        found = torch.where(hit, meta >> 5, -1)
+    else:
+        hit = torch.zeros_like(live)
+        found = torch.full_like(plc, -1)
+    single = live & (plc == 1)
+    # byte tokens ARE their byte value; ws0 is masked to 1 byte
+    tokv = torch.where(single, wsC[0] & 0xFF, found)
+
+    miss = live & (plc >= 2) & ~hit
+    pos = fstart.reshape(-1)
+    plf = plc.reshape(-1)
+    jg = (row_base + torch.arange(C, dtype=i64, device=dev)[None, :]
+          ).reshape(-1)
+
+    # --- emit singles + hits into the flat token stream (slot N drops) ---
+    src = tokv.reshape(-1)
+    tok = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+    tok[torch.where(src >= 0, pos, N)] = src
+
+    # --- bucket build: 2-3-byte misses go to the P23 tier, 4 / 5-8 / > 8
+    # byte misses to the P=4 / P=8 / P=32 merge buckets ---
+    m23f = (miss & (plc <= 3)).reshape(-1)
+    missf = (miss & (plc >= 4)).reshape(-1)
+    tinym = missf & (plf == 4)
+    is3f = (miss & (plc == 3)).reshape(-1)
+    shortm = missf & (plf > 4) & (plf <= P_SHORT)
+    longm = missf & (plf > P_SHORT)
+    fb_piece = longm & (plf > fb_len_limit)
+
+    def ids(m):
+        return torch.cumsum(m.to(i64), 0) - 1
+
+    id_23, id_t, id_s, id_l = ids(m23f), ids(tinym), ids(shortm), ids(longm)
+    n_23, n_t, n_s, n_l, n_lm = torch.stack([
+        m23f.sum(), tinym.sum(), shortm.sum(), longm.sum(),
+        (longm & (plf <= fb_len_limit)).sum()]).tolist()
+    overflow = int(n_23 > NP3 or n_t > NP4 or n_s > NP8 or n_l > NP32)
+
+    tgt_row = torch.where(
+        tinym & (id_t < NP4), id_t, torch.where(
+            shortm & (id_s < NP8), NP4 + id_s, torch.where(
+                longm & (id_l < NP32), NP4 + NP8 + id_l, torch.where(
+                    m23f & (id_23 < NP3), NPM + id_23, NPT))))
+    # merge rows pack the global compact index (row*R + col) and the
+    # fallback bit; P23 rows pack the flat byte position and the plen-3 bit
+    word = torch.where(
+        m23f, (pos << 2) | (is3f.to(i64) << 1) | 1,
+        (jg << 2) | (fb_piece.to(i64) << 1) | 1)
+    w = torch.zeros(NPT + 1, dtype=i64, device=dev)
+    w[tgt_row] = word
+    w = w[:NPT]
+    dropped = miss.reshape(-1) & (tgt_row == NPT)
+    row_bad = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+    row_bad[torch.where(dropped, pos // R, B)] = 1
+    row_bad = row_bad[:B]
+    _mark(clock, "probe_emit", dev)
+
+    # byte-positional piece geometry for the merge rows and fb records:
+    # geo_full[j] = flat start of compact record j, geo_full[N + j] its plen
+    pos_full = torch.where(st >= 0, st.to(i64) + row_base, -1).reshape(N)
+    geo_full = torch.cat([pos_full, pl.reshape(N).to(i64)])
+
+    if n_23:
+        T = _tier(n_23, {64, max(64, NP3 // 64), max(64, NP3 // 16),
+                         max(64, NP3 // 4), NP3})
+        _p23_tier(tok, w[NPM:NPM + T], byte_rank, tables, N)
+    _mark(clock, "p23", dev)
+
+    def rows_fn(lo, rows):
+        # bucket rows [lo, lo+rows): compact index -> (start, plen); fb
+        # rows merge zero lanes
+        wv = w[lo:lo + rows]
+        livev = (wv & 1) == 1
+        fbv = livev & ((wv & 2) != 0)
+        jj = (wv >> 2).clamp(0, N - 1)
+        g = geo_full[torch.cat([jj, jj + N])]
+        keep = livev & ~fbv
+        return (torch.where(keep, g[rows:], 0),
+                torch.where(keep, g[:rows], -1))
+
+    if n_t:
+        _merge_tier(tok, byte_rank, rows_fn, 0, _tier(
+            n_t, [64, max(64, NP4 // 16), max(64, NP4 // 4), NP4]), 4,
+            tables, N)
+    if n_s:
+        _merge_tier(tok, byte_rank, rows_fn, NP4, _tier(
+            n_s, [64, max(64, NP8 // 16), max(64, NP8 // 4), NP8]),
+            P_SHORT, tables, N)
+    if n_lm:
+        # the tier covers every row the bucket fills: fb rows share the
+        # bucket's numbering with the mergeable ones
+        _merge_tier(tok, byte_rank, rows_fn, NP4 + NP8, _tier(
+            min(n_l, NP32), [64, max(64, NP32 // 4), NP32]), P_LANES,
+            tables, N)
+    tok = tok[:N]
+    n_out = (tok >= 0).sum()
+    _mark(clock, "merge", dev)
+
+    # fallback records (misses past the device-merge limit) sit in the
+    # long bucket's rows
+    if n_l:
+        wl = w[NP4 + NP8:NPM]
+        fbl = ((wl & 1) == 1) & ((wl & 2) != 0)
+        jj = (wl >> 2).clamp(0, N - 1)
+        g = geo_full[torch.cat([jj, jj + N])]
+        fb_start = torch.where(fbl, g[:NP32], -1).to(torch.int32)
+        fb_len = torch.where(fbl, g[NP32:], 0).to(torch.int32)
+    else:
+        fb_start = torch.full((NP32,), -1, dtype=torch.int32, device=dev)
+        fb_len = torch.zeros(NP32, dtype=torch.int32, device=dev)
+    return tok, n_out, fb_start, fb_len, overflow, row_bad
+
+
+def _p23_tier(tok, wv, byte_rank, tables, N):
+    """Resolve 2-3-byte misses in place.  A 2-byte miss's only pair rank IS
+    its merged token (dense table); a 3-byte miss takes the dense argmin
+    (leftmost on ties) and one cuckoo probe for the second merge."""
+    T = wv.shape[0]
+    livev = (wv & 1) == 1
+    posr = torch.where(livev, wv >> 2, -1)
+    is3 = livev & ((wv & 2) != 0)
+    pc = posr.clamp(0, N - 1)
+    bs = byte_rank[torch.cat([pc, (pc + 1).clamp(0, N - 1),
+                              (pc + 2).clamp(0, N - 1)])]
+    b0, b1, b2 = bs[:T], bs[T:2 * T], bs[2 * T:]
+    q1ok = livev & (b0 >= 0) & (b1 >= 0)
+    q2ok = is3 & (b2 >= 0)
+    dd = tables.dense[torch.cat([torch.where(q1ok, b0 * 256 + b1, 0),
+                                 torch.where(q2ok, b1 * 256 + b2, 0)])]
+    p1 = torch.where(q1ok, dd[:T].to(torch.int64), INF)
+    p2 = torch.where(q2ok, dd[T:].to(torch.int64), INF)
+    any3 = is3 & ((p1 < INF) | (p2 < INF))
+    first = p1 <= p2
+    ql = torch.where(any3, torch.where(first, p1, b0), -1)
+    qr = torch.where(any3, torch.where(first, b2, p2), -1)
+    m = probe2(ql, qr, tables.packed, tables.seed1,
+               tables.seed2).to(torch.int64)
+    hitp = m < INF
+    two = livev & ~is3
+    t0 = torch.where(two, torch.where(p1 < INF, p1, b0), torch.where(
+        is3, torch.where(any3, torch.where(hitp, m, torch.where(
+            first, p1, b0)), b0), -1))
+    t1 = torch.where(two & (p1 >= INF), b1, torch.where(
+        is3 & any3 & ~hitp & ~first, p2, torch.where(is3 & ~any3, b1, -1)))
+    t2 = torch.where(is3 & ((any3 & ~hitp & first) | ~any3), b2, -1)
+    src = torch.cat([t0, t1, t2])
+    dst = torch.cat([posr, posr + 1, posr + 2])
+    ok = (src >= 0) & (torch.cat([posr, posr, posr]) >= 0)
+    tok[torch.where(ok, dst, N)] = src.to(torch.int32)
+
+
+def _merge_tier(tok, byte_rank, rows_fn, lo, rows, P, tables, N):
+    """Merge bucket rows [lo, lo+rows) in a (rows, P) matrix and write the
+    tokens at start + lane, in place."""
+    dev = tok.device
+    pos = torch.arange(P, dtype=torch.int64, device=dev)[None, :]
+    n0, s0 = rows_fn(lo, rows)
+    lane_byte_pos = s0[:, None] + pos
+    lane_in = (pos < n0[:, None]) & (s0[:, None] >= 0)
+    r0 = torch.where(lane_in, byte_rank[lane_byte_pos.clamp(0, N - 1)], -1)
+    right = torch.cat([r0[:, 1:], torch.full_like(r0[:, :1], -1)], dim=1)
+    # the first round only pairs single bytes: one dense-table gather
+    q_ok = (pos + 1 < n0[:, None]) & (r0 >= 0) & (right >= 0)
+    pr0 = torch.where(q_ok, tables.dense[torch.where(q_ok, r0 * 256 + right, 0)],
+                      INF)
+    r, n = merge_rows_compact_fused(
+        r0.to(torch.int32).contiguous(), pr0.to(torch.int32).contiguous(),
+        n0.to(torch.int32).contiguous(), tables.packed, tables.seed1,
+        tables.seed2, fixed_rounds=P - 1 if P <= P_SHORT else None)
+    lane_ok = (pos < n.to(torch.int64)[:, None]) & (s0[:, None] >= 0)
+    tok[torch.where(lane_ok, lane_byte_pos, N)] = torch.where(lane_ok, r, -1)
+
+
+# --------------------------------------------------------------------- #
+# host side (numpy)
+# --------------------------------------------------------------------- #
+
+def host_route(buf: np.ndarray) -> int:
+    """The routing decision over a whole buffer: 1 simple ASCII / 2 general
+    ASCII / 3 UTF-8 (padding zeros are neither whitespace nor digits)."""
+    if buf.size and int(buf.max()) >= 0x80:
+        return 3
+    is_w = (buf == 32) | ((buf >= 9) & (buf <= 13))
+    if (is_w[:, 1:] & is_w[:, :-1]).any():
+        return 2
+    is_n = (buf >= 48) & (buf <= 57)
+    if (is_n[:, 3:] & is_n[:, 2:-1] & is_n[:, 1:-2] & is_n[:, :-3]).any():
+        return 2
+    return 1
+
+
+def doc_routes(buf: np.ndarray) -> np.ndarray:
+    """Per-row routing: host_route's predicates row by row (pieces never
+    cross rows).  Returns int8[B]; host_route(buf) == doc_routes(buf).max()
+    for non-empty buffers."""
+    r = np.ones(buf.shape[0], np.int8)
+    is_w = (buf == 32) | ((buf >= 9) & (buf <= 13))
+    ws2 = (is_w[:, 1:] & is_w[:, :-1]).any(axis=1)
+    is_n = (buf >= 48) & (buf <= 57)
+    dig4 = (is_n[:, 3:] & is_n[:, 2:-1] & is_n[:, 1:-2]
+            & is_n[:, :-3]).any(axis=1)
+    r[ws2 | dig4] = 2
+    r[(buf >= 0x80).any(axis=1)] = 3
+    return r
+
+
+def splice_host_merges(out, out_pos, flat, fb_start, fb_len, merge_fn,
+                       base: int = 0):
+    """Merge the recorded miss spans on the host and splice their tokens
+    into the device token stream by position.
+
+    out/out_pos: device tokens and their flat byte positions (np arrays);
+    flat: the flat input byte buffer; merge_fn(buf, starts, lens) ->
+    (tokens back-to-back, counts) with byte_pair_merge semantics.  Token k
+    of a span at start s gets position s + k (< s + len, so it never
+    collides with another piece's slots)."""
+    sel = fb_start >= 0
+    starts = fb_start[sel].astype(np.int64)
+    if starts.size == 0:
+        return out, out_pos
+    lens = fb_len[sel].astype(np.int64)
+    toks, cnts = merge_fn(flat, base + starts, lens)
+    cnts = np.asarray(cnts, dtype=np.int64)
+    within = np.arange(len(toks), dtype=np.int64) - np.repeat(
+        np.cumsum(cnts) - cnts, cnts)
+    pos = np.repeat(starts, cnts) + within
+    out = np.concatenate([out, np.asarray(toks, out.dtype)])
+    out_pos = np.concatenate([out_pos, pos.astype(out_pos.dtype)])
+    o = np.argsort(out_pos, kind="stable")
+    return out[o], out_pos[o]
+
+
+def oracle_merge_fn(ranks):
+    """byte_pair_merge-based merge_fn for ``splice_host_merges``."""
+    from ..oracle import byte_pair_merge
+
+    def fn(flat, starts, lens):
+        toks: list[int] = []
+        cnts = np.empty(len(starts), np.int32)
+        for i, (s, ln) in enumerate(zip(starts, lens)):
+            t = byte_pair_merge(flat[s:s + ln].tobytes(), ranks)
+            toks.extend(t)
+            cnts[i] = len(t)
+        return np.asarray(toks, np.int32), cnts
+    return fn
+
+
+class PackedEncoder:
+    """Host wrapper over the packed device pipeline for (rows, row_len)
+    buffers.  Docs are routed one by one on the host; each route group
+    runs in a power-of-two sub-batch of its own, so one UTF-8 doc does not
+    send a whole batch down the slower route.
+
+    ``stats`` holds counts of the last ``encode_batch``: the rows
+    re-encoded on the host after a bucket overflow and the spans merged
+    and spliced on the host."""
+
+    def __init__(self, tokenizer, rows: int = 64, row_len: int = 1024,
+                 np_cap: int | None = None, device="cuda"):
+        self._tables = tokenizer.device_tables(device)
+        self._device = self._tables.device
+        self._B = rows
+        self._R = row_len
+        self._np_cap = (np_cap if np_cap is not None
+                        else default_np_cap(rows * row_len))
+        self._ranks = tokenizer.ranks
+        self._merge_fn = oracle_merge_fn(self._ranks)
+        self.stats = {"overflow_rows": 0, "fb_spans": 0}
+
+    def pack(self, texts):
+        datas = [t.encode("utf-8") for t in texts]
+        if len(datas) > self._B:
+            raise ValueError(f"{len(datas)} docs exceed {self._B} rows")
+        buf = np.zeros((self._B, self._R), dtype=np.uint8)
+        lengths = np.zeros(self._B, dtype=np.int32)
+        for i, d in enumerate(datas):
+            if len(d) > self._R:
+                raise ValueError(f"doc of {len(d)} bytes exceeds row "
+                                 f"{self._R}")
+            if d:
+                buf[i, :len(d)] = np.frombuffer(d, dtype=np.uint8)
+            lengths[i] = len(d)
+        return buf, lengths
+
+    def encode_batch(self, texts, clock=None):
+        self.stats = {"overflow_rows": 0, "fb_spans": 0}
+        buf, lengths = self.pack(texts)
+        routes = doc_routes(buf)[:len(texts)]
+        distinct = sorted(set(routes.tolist())) if len(texts) else [1]
+        _mark(clock, "route_pack")
+        if len(distinct) <= 1:
+            return self._encode_buffer(buf, lengths, len(texts),
+                                       host_route(buf), clock)
+        result: list[list[int] | None] = [None] * len(texts)
+        for r in distinct:
+            idx = np.flatnonzero(routes == r)
+            Bg = 8
+            while Bg < idx.size:
+                Bg <<= 1
+            Bg = min(Bg, self._B)
+            for lo in range(0, idx.size, Bg):
+                sel = idx[lo:lo + Bg]
+                sub_buf = np.zeros((Bg, self._R), dtype=np.uint8)
+                sub_buf[:sel.size] = buf[sel]
+                sub_len = np.zeros(Bg, dtype=np.int32)
+                sub_len[:sel.size] = lengths[sel]
+                _mark(clock, "route_pack")
+                sub_out = self._encode_buffer(sub_buf, sub_len, sel.size,
+                                              int(r), clock)
+                for j, i in enumerate(sel):
+                    result[int(i)] = sub_out[j]
+        return result
+
+    def _encode_buffer(self, buf, lengths, n_docs: int, route: int, clock):
+        """Run the pipeline on one (Bg, R) buffer with a static route;
+        splice fb spans and re-encode overflow rows on the host."""
+        from ..oracle import encode_ranks
+
+        Bg = buf.shape[0]
+        np_cap = (self._np_cap if Bg == self._B
+                  else max(64, self._np_cap * Bg // self._B))
+        dev = self._device
+        byts = torch.from_numpy(buf).to(dev)
+        lens = torch.from_numpy(lengths).to(dev)
+        _mark(clock, "upload", dev)
+        tok, _, fb_start, fb_len, overflow, row_bad = packed_encode(
+            byts, lens, self._tables, route, np_cap, clock=clock)
+        tok = tok.cpu().numpy()
+        fb_start = fb_start.cpu().numpy()
+        fb_len = fb_len.cpu().numpy()
+        bad_rows = (set(np.flatnonzero(row_bad.cpu().numpy()).tolist())
+                    if overflow else set())
+        _mark(clock, "readback", dev)
+
+        out_pos = np.flatnonzero(tok >= 0).astype(np.int64)
+        out = tok[out_pos]
+        out, out_pos = splice_host_merges(
+            out, out_pos, buf.reshape(-1), fb_start, fb_len, self._merge_fn)
+        self.stats["fb_spans"] += int((fb_start >= 0).sum())
+        self.stats["overflow_rows"] += len(bad_rows)
+
+        rows = out_pos // self._R
+        cut = np.searchsorted(rows, np.arange(n_docs + 1))
+        result = []
+        for i in range(n_docs):
+            if i in bad_rows:
+                data = buf[i, :lengths[i]].tobytes()
+                result.append(encode_ranks(data.decode("utf-8"), self._ranks))
+            else:
+                result.append(out[cut[i]:cut[i + 1]].tolist())
+        _mark(clock, "splice")
+        return result

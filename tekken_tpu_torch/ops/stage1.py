@@ -1,0 +1,134 @@
+"""Stage 1 of the packed encode: boundary rules, piece geometry, content
+dwords, the word-probe hash and per-row piece compaction.
+
+The counterpart of the JAX package's ops/pallas_stage1.py
+``stage1_compact``.  ``stage1_compact`` launches the CUDA kernel
+(csrc/stage1_compact.cu) for CUDA tensors and runs the plain version
+``stage1_compact_reference`` for CPU tensors; both return the same arrays.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .hashing import MASK32, to_i32, word_slot
+from .pretokenize import BIG, _iota, _rcummin, _sh, ascii_boundaries, row_valid
+
+RULES = {"simple": 0, "general": 1, "external": 2}
+
+
+def _check(byts, lengths, n_words, word_size, rules, boundary):
+    if rules not in RULES:
+        raise ValueError(f"rules must be one of {sorted(RULES)}: {rules!r}")
+    if byts.dim() != 2:
+        raise ValueError(f"byts must be (B, R), got {tuple(byts.shape)}")
+    B, R = byts.shape
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be ({B},), got {tuple(lengths.shape)}")
+    if n_words not in (0, 3, 6):
+        raise ValueError(f"n_words must be 0, 3 or 6: {n_words}")
+    if word_size < 1 or word_size & (word_size - 1):
+        raise ValueError(f"word_size must be a power of two: {word_size}")
+    if rules == "external":
+        if boundary is None or tuple(boundary.shape) != (B, R):
+            raise ValueError("rules='external' takes (B, R) boundary flags")
+    if rules == "general" and R > 8192:
+        raise ValueError(f"general rules take rows of <= 8192 bytes, got {R}")
+
+
+def stage1_compact_reference(byts, lengths, n_words: int, word_size: int,
+                             wseed: int, rules: str = "simple",
+                             boundary=None):
+    """Plain PyTorch version of the stage-1 kernel.
+
+    (B, R) uint8 bytes + (B,) lengths -> (start, plen, slot, ws..., cnt):
+    ``3 + max(n_words, 1)`` (B, R) int32 arrays of piece records,
+    left-compacted per row in piece order and -1 past each row's count,
+    then cnt (B,) int32.  ``rules``: "simple" (no whitespace run > 1, no
+    digit run > 3; the caller routes), "general" (any ASCII row) or
+    "external" (``boundary`` carries the piece-start flags, e.g. the
+    UTF-8 route's ``byte_boundaries``)."""
+    _check(byts, lengths, n_words, word_size, rules, boundary)
+    B, R = byts.shape
+    dev = byts.device
+    valid = row_valid(byts, lengths)
+    if rules == "external":
+        bnd = (boundary != 0) & valid
+    else:
+        bnd = ascii_boundaries(byts, lengths, rules)
+    idx = _iota(byts)
+
+    # piece length at its start: distance to the first last-byte at or
+    # after it (a reverse running min)
+    is_last = (_sh(bnd, 1, True) | ~_sh(valid, 1, False)) & valid
+    last = _rcummin(torch.where(is_last, idx, BIG))
+    plen = torch.where(bnd, last - idx + 1, 0)
+
+    # content dwords at starts, masked to plen (uint32 values in int64)
+    bu = torch.where(valid, byts.to(torch.int64), 0)
+    w = bu | (_sh(bu, 1, 0) << 8) | (_sh(bu, 2, 0) << 16) | (_sh(bu, 3, 0) << 24)
+
+    def msk(m):
+        m4 = m.clamp(0, 4)
+        return torch.where(m4 >= 4, MASK32,
+                           (torch.ones_like(m4) << (m4.clamp(max=3) * 8)) - 1)
+
+    nw = max(n_words, 1)   # singles need ws[0] for the byte value
+    ws = [_sh(w, 4 * j, 0) & msk(plen - 4 * j) for j in range(nw)]
+    if n_words:
+        slot = word_slot(ws[0], ws[1], ws[2], plen, wseed, word_size)
+    else:
+        slot = torch.zeros_like(plen)
+
+    # compaction: record k of a row is its k-th piece start
+    mark = plen > 0
+    ids = torch.cumsum(mark.to(torch.int64), dim=1) - 1
+    rows, cols = torch.nonzero(mark, as_tuple=True)
+    tgt = ids[rows, cols]
+    out = torch.full((3 + nw, B, R), -1, dtype=torch.int32, device=dev)
+    for k, v in enumerate([idx.expand(B, R), plen, slot, *ws]):
+        out[k, rows, tgt] = to_i32(v[rows, cols])
+    cnt = mark.sum(dim=1).to(torch.int32)
+    return tuple(out) + (cnt,)
+
+
+def stage1_compact(byts, lengths, n_words: int, word_size: int, wseed: int,
+                   rules: str = "simple", boundary=None):
+    """Stage 1 with per-row compaction; same contract as
+    ``stage1_compact_reference``.  CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
+    if byts.device.type == "cpu":
+        return stage1_compact_reference(byts, lengths, n_words, word_size,
+                                        wseed, rules, boundary)
+    _check(byts, lengths, n_words, word_size, rules, boundary)
+    B, R = byts.shape
+    dev = byts.device
+    if dev.type != "cuda":
+        raise ValueError(f"stage1_compact runs on cpu or cuda tensors, "
+                         f"not {dev.type}")
+    if byts.dtype != torch.uint8 or not byts.is_contiguous():
+        raise ValueError("byts must be a contiguous uint8 tensor")
+    if (lengths.dtype != torch.int32 or not lengths.is_contiguous()
+            or lengths.device != dev):
+        raise ValueError("lengths must be a contiguous int32 tensor on "
+                         "the bytes' device")
+    flags = None
+    if rules == "external":
+        if boundary.dtype == torch.bool:
+            boundary = boundary.view(torch.uint8)
+        if (boundary.dtype != torch.uint8 or not boundary.is_contiguous()
+                or boundary.device != dev):
+            raise ValueError("boundary must be a contiguous bool or uint8 "
+                             "tensor on the bytes' device")
+        flags = boundary
+    nw = max(n_words, 1)
+    out = torch.empty((3 + nw, B, R), dtype=torch.int32, device=dev)
+    cnt = torch.empty(B, dtype=torch.int32, device=dev)
+    _build.launch(
+        "stage1_compact", byts.data_ptr(),
+        flags.data_ptr() if flags is not None else None,
+        lengths.data_ptr(), B, R, RULES[rules], n_words, nw,
+        (word_size - 1) & MASK32, wseed & MASK32, out.data_ptr(),
+        cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return tuple(out) + (cnt,)

@@ -1,0 +1,459 @@
+"""The Tekkenizer of the PyTorch port: the public tokenizer API.
+
+Parity surface (reference: src/tekkenizer.rs):
+- construction + validation           (src/tekkenizer.rs:71-191)
+- ``from_file``                       (src/tekkenizer.rs:222-248)
+- ``encode(text, add_bos, add_eos)``  (src/tekkenizer.rs:378-405)
+- ``decode`` / ``decode_all``         (src/tekkenizer.rs:436-511)
+- id helpers and vocab access         (src/tekkenizer.rs:281-700)
+
+Token-id spaces: special tokens sit at ``0..num_special_tokens`` and
+engine ranks are shifted up by ``num_special_tokens``.
+
+``encode`` and ``decode`` run on the host (the oracle); ``encode_batch``
+runs the packed pipeline on ``device`` ("cuda" unless the caller asks for
+"cpu") and raises on any failure: there is no host fallback.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from .audio import AudioConfig
+from .config import ModelData, TokenInfo, TokenizerVersion, parse_version
+from .errors import (
+    InvalidConfigError,
+    SpecialTokenPolicyError,
+    TokenizersError,
+    TokenNotFoundError,
+)
+from .oracle import TEKKEN_PATTERN, encode_ranks
+from .special_tokens import (
+    SpecialTokenInfo,
+    SpecialTokenPolicy,
+    SpecialTokens,
+    get_deprecated_special_tokens,
+)
+from .vocab import CuckooPairTable, DecodeTable, WordDirectMap, reload_mergeable_ranks
+
+# buffers of more bytes than this are refused by encode_batch
+MAX_BATCH_BYTES = 1 << 24
+
+
+class Tekkenizer:
+    """Multimodal Tekken tokenizer (reference: src/tekkenizer.rs:34-44)."""
+
+    def __init__(
+        self,
+        vocab: list[TokenInfo],
+        special_tokens: list[SpecialTokenInfo],
+        pattern: str,
+        vocab_size: int,
+        num_special_tokens: int,
+        version: TokenizerVersion,
+        audio_config: Optional[AudioConfig] = None,
+        device="cuda",
+    ):
+        if vocab_size > len(vocab) + num_special_tokens:
+            raise InvalidConfigError(
+                f"vocab_size ({vocab_size}) must be <= vocab.len() "
+                f"({len(vocab)}) + num_special_tokens ({num_special_tokens})")
+
+        seen = set()
+        for tok in special_tokens:
+            if tok.token_str in seen:
+                raise InvalidConfigError(
+                    f"Duplicate special token: {tok.token_str}")
+            seen.add(tok.token_str)
+
+        if len(special_tokens) > num_special_tokens:
+            raise InvalidConfigError(
+                f"special_tokens.len() ({len(special_tokens)}) must be <= "
+                f"num_special_tokens ({num_special_tokens})")
+
+        all_special = list(special_tokens)
+        for i in range(len(special_tokens), num_special_tokens):
+            all_special.append(SpecialTokenInfo(
+                rank=i, token_str=f"<SPECIAL_{i}>", is_control=True))
+
+        ranks = reload_mergeable_ranks(vocab, vocab_size - num_special_tokens)
+
+        # the reference ignores config.pattern and hardcodes the Tekken
+        # pattern (reference: src/tekkenizer.rs:74,123)
+        del pattern
+        self._pattern = TEKKEN_PATTERN
+        self._special_tokens_map = {t.token_str: t.rank for t in all_special}
+        self._decode_table = DecodeTable.build(ranks)
+
+        n_ranks = len(ranks)
+        vocab_strings = [t.token_str for t in all_special]
+        for i in range(vocab_size - num_special_tokens):
+            if i < n_ranks:
+                vocab_strings.append(self._decode_table.token_bytes(i).decode(
+                    "utf-8", errors="replace"))
+            else:
+                vocab_strings.append("<?>")
+
+        if audio_config is not None:
+            if SpecialTokens.AUDIO.as_str() not in self._special_tokens_map:
+                raise TokenNotFoundError("Audio token not found")
+            if SpecialTokens.BEGIN_AUDIO.as_str() not in self._special_tokens_map:
+                raise TokenNotFoundError("BeginAudio token not found")
+
+        self._ranks = ranks
+        self._vocab_size = vocab_size
+        self._num_special_tokens = num_special_tokens
+        self._version = version
+        self._special_tokens = all_special
+        self._vocab_strings = vocab_strings
+        self._audio_config = audio_config
+        self._device = device
+        self._cuckoo_table: Optional[CuckooPairTable] = None
+        self._word_map: Optional[WordDirectMap] = None
+        self._device_tables: dict = {}
+        self._packed_encoders: dict = {}
+        self._last_batch_stats: dict = {}
+
+    @classmethod
+    def from_file(cls, path, device="cuda") -> "Tekkenizer":
+        """Load from a tekken.json model file
+        (reference: src/tekkenizer.rs:222-248)."""
+        return cls.from_model_data(ModelData.from_file(path), device=device)
+
+    @classmethod
+    def from_model_data(cls, model_data: ModelData,
+                        device="cuda") -> "Tekkenizer":
+        version = parse_version(model_data.config.version)
+        special_tokens = model_data.special_tokens
+        if special_tokens is None:
+            special_tokens = get_deprecated_special_tokens()
+        return cls(
+            vocab=model_data.vocab,
+            special_tokens=special_tokens,
+            pattern=model_data.config.pattern,
+            vocab_size=model_data.config.default_vocab_size,
+            num_special_tokens=model_data.config.default_num_special_tokens,
+            version=version,
+            audio_config=model_data.audio,
+            device=device,
+        )
+
+    # ------------------------------------------------------------------ #
+    # metadata accessors
+    # ------------------------------------------------------------------ #
+
+    def vocab_size(self) -> int:
+        return self._vocab_size
+
+    def num_special_tokens(self) -> int:
+        return self._num_special_tokens
+
+    def version(self) -> TokenizerVersion:
+        return self._version
+
+    def vocab(self) -> list[str]:
+        return self._vocab_strings
+
+    def get_control_token(self, token_str: str) -> int:
+        rank = self._special_tokens_map.get(token_str)
+        if rank is None:
+            available = list(self._special_tokens_map.keys())
+            raise TokenNotFoundError(
+                f"Unknown control token: '{token_str}'. "
+                f"Available special tokens: {available!r}")
+        return rank
+
+    def bos_id(self) -> int:
+        return self.get_control_token(SpecialTokens.BOS.as_str())
+
+    def eos_id(self) -> int:
+        return self.get_control_token(SpecialTokens.EOS.as_str())
+
+    def pad_id(self) -> int:
+        return self.get_control_token(SpecialTokens.PAD.as_str())
+
+    def unk_id(self) -> int:
+        return self.get_control_token(SpecialTokens.UNK.as_str())
+
+    def is_special_token(self, token_id: int) -> bool:
+        return 0 <= token_id < self._num_special_tokens
+
+    def is_byte(self, token_id: int) -> bool:
+        if token_id < self._num_special_tokens:
+            return False
+        return (token_id - self._num_special_tokens) < 256
+
+    # ------------------------------------------------------------------ #
+    # encode
+    # ------------------------------------------------------------------ #
+
+    def _with_specials(self, ranks, bos: bool, eos: bool) -> list[int]:
+        shift = self._num_special_tokens
+        toks = [r + shift for r in ranks]
+        if bos:
+            toks.insert(0, self.bos_id())
+        if eos:
+            toks.append(self.eos_id())
+        return toks
+
+    def encode(self, text: str, add_beginning_of_sequence: bool,
+               add_end_of_sequence: bool) -> list[int]:
+        """Encode one string on the host (reference: src/tekkenizer.rs:378-405)."""
+        return self._with_specials(encode_ranks(text, self._ranks),
+                                   add_beginning_of_sequence,
+                                   add_end_of_sequence)
+
+    def encode_batch(
+        self,
+        texts: Sequence[str],
+        add_beginning_of_sequence: bool = False,
+        add_end_of_sequence: bool = False,
+        clock=None,
+    ) -> list[list[int]]:
+        """Batched encode on the device through the packed pipeline, in
+        power-of-two shape buckets (rows >= 8, row length >= 256).  Raises
+        ValueError when the buffer would exceed MAX_BATCH_BYTES.
+        ``clock`` (an ops.packed.StageClock, measurement only) records the
+        wall time of each pipeline stage."""
+        enc = self._get_packed_encoder(texts)
+        rank_lists = enc.encode_batch(texts, clock=clock)
+        self._last_batch_stats = dict(enc.stats)
+        out = [self._with_specials(r, add_beginning_of_sequence,
+                                   add_end_of_sequence) for r in rank_lists]
+        if clock is not None:
+            clock.mark("public_ids")
+        return out
+
+    @property
+    def last_batch_stats(self) -> dict:
+        """Counts of the last encode_batch: rows re-encoded on the host
+        after a bucket overflow, spans merged and spliced on the host."""
+        return self._last_batch_stats
+
+    def _get_packed_encoder(self, texts):
+        from .ops.packed import PackedEncoder
+
+        def pow2(n, lo):
+            b = lo
+            while b < n:
+                b <<= 1
+            return b
+
+        max_len = max((len(t.encode("utf-8")) for t in texts), default=1)
+        rows = pow2(max(1, len(texts)), 8)
+        row_len = pow2(max_len, 256)
+        if rows * row_len > MAX_BATCH_BYTES:
+            raise ValueError(
+                f"batch buffer of {rows} x {row_len} = {rows * row_len} bytes "
+                f"exceeds {MAX_BATCH_BYTES}; split the batch")
+        key = (rows, row_len)
+        enc = self._packed_encoders.get(key)
+        if enc is None:
+            enc = PackedEncoder(self, rows=rows, row_len=row_len,
+                                device=self._device)
+            self._packed_encoders[key] = enc
+        return enc
+
+    # ------------------------------------------------------------------ #
+    # serialization
+    # ------------------------------------------------------------------ #
+
+    def to_model_data(self) -> ModelData:
+        import base64 as _b64
+
+        from .config import TekkenConfig
+
+        n_ranks = len(self._decode_table.offsets) - 1
+        vocab = [
+            TokenInfo(rank=r,
+                      token_bytes=_b64.b64encode(
+                          self._decode_table.token_bytes(r)).decode("ascii"),
+                      token_str=None)
+            for r in range(n_ranks)
+        ]
+        config = TekkenConfig(
+            pattern=self._pattern,
+            num_vocab_tokens=n_ranks,
+            default_vocab_size=self._vocab_size,
+            default_num_special_tokens=self._num_special_tokens,
+            version=self._version.as_str(),
+        )
+        return ModelData(vocab=vocab, config=config,
+                         special_tokens=list(self._special_tokens),
+                         audio=self._audio_config)
+
+    def save(self, path) -> None:
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(self.to_model_data().to_json())
+
+    # ------------------------------------------------------------------ #
+    # decode (host)
+    # ------------------------------------------------------------------ #
+
+    def decode_batch(self, token_lists, special_token_policy):
+        raise NotImplementedError(
+            "decode_batch is ported with the decode slice (ROADMAP.md, "
+            "queue 1: 'Decode', with the block-compaction decode kernel)")
+
+    def decode(self, tokens: Sequence[int],
+               special_token_policy: SpecialTokenPolicy) -> str:
+        """Join of decode_all (reference: src/tekkenizer.rs:436-443)."""
+        return "".join(self.decode_all(tokens, special_token_policy))
+
+    def decode_all(self, tokens: Sequence[int],
+                   special_token_policy: SpecialTokenPolicy) -> list[str]:
+        """Decode into segments of maximal same-specialness runs
+        (reference: src/tekkenizer.rs:463-511)."""
+        decoded: list[str] = []
+        group: list[int] = []
+        group_is_special: Optional[bool] = None
+        ns = self._num_special_tokens
+        for token_id in tokens:
+            is_special = token_id < ns
+            if group_is_special is None:
+                group_is_special = is_special
+            if is_special == group_is_special:
+                group.append(token_id)
+            else:
+                self._decode_group(group, group_is_special, decoded,
+                                   special_token_policy)
+                group = [token_id]
+                group_is_special = is_special
+        if group_is_special is not None:
+            self._decode_group(group, group_is_special, decoded,
+                               special_token_policy)
+        return decoded
+
+    def _decode_group(self, group: list[int], is_special: bool,
+                      decoded: list[str],
+                      policy: SpecialTokenPolicy) -> None:
+        """(reference: src/tekkenizer.rs:522-560)"""
+        if is_special:
+            if policy is SpecialTokenPolicy.RAISE:
+                raise SpecialTokenPolicyError(
+                    f"Decoding tokens that contain special tokens "
+                    f"({group!r}) is not allowed")
+            if policy is SpecialTokenPolicy.KEEP:
+                for token_id in group:
+                    decoded.append(self._special_tokens[token_id].token_str)
+        else:
+            ns = self._num_special_tokens
+            n_ranks = len(self._decode_table.offsets) - 1
+            parts = []
+            for t in group:
+                rank = t - ns
+                if rank < 0 or rank >= n_ranks:
+                    raise TokenizersError(f"Invalid token id for decode: {t}")
+                parts.append(self._decode_table.token_bytes(rank))
+            decoded.append(b"".join(parts).decode("utf-8", errors="replace"))
+
+    def id_to_piece(self, token_id: int) -> str:
+        """Single-token string (reference: src/tekkenizer.rs:617-628)."""
+        if token_id >= self._vocab_size or token_id < 0:
+            raise InvalidConfigError(
+                f"Token ID {token_id} is out of vocabulary range "
+                f"(0-{self._vocab_size - 1})")
+        return self.decode([token_id], SpecialTokenPolicy.KEEP)
+
+    def id_to_byte_piece(self, token_id: int,
+                         special_token_policy: SpecialTokenPolicy) -> bytes:
+        """Single-token bytes (reference: src/tekkenizer.rs:648-695); a
+        non-UTF-8 token falls back to its lossy vocab string, as the
+        reference does."""
+        if token_id >= self._vocab_size or token_id < 0:
+            raise InvalidConfigError(
+                f"Token ID {token_id} is out of vocabulary range "
+                f"(0-{self._vocab_size - 1})")
+        ns = self._num_special_tokens
+        if token_id < ns:
+            info = self._special_tokens[token_id]
+            if special_token_policy is SpecialTokenPolicy.KEEP:
+                return info.token_str.encode("utf-8")
+            if special_token_policy is SpecialTokenPolicy.RAISE:
+                raise SpecialTokenPolicyError(
+                    f"Token ID {token_id} is a special token "
+                    f"({info.token_str}), cannot convert to byte piece with "
+                    f"Raise policy")
+            return b""
+        rank = token_id - ns
+        n_ranks = len(self._decode_table.offsets) - 1
+        if rank >= n_ranks:
+            raise TokenizersError(
+                f"Failed to decode token ID {token_id} to bytes: rank out of "
+                f"range")
+        raw = self._decode_table.token_bytes(rank)
+        try:
+            raw.decode("utf-8")
+            return raw
+        except UnicodeDecodeError:
+            return self._vocab_strings[token_id].encode("utf-8")
+
+    # ------------------------------------------------------------------ #
+    # audio
+    # ------------------------------------------------------------------ #
+
+    def encode_audio(self, audio):
+        raise NotImplementedError(
+            "audio encode is ported with the audio slice (ROADMAP.md, "
+            "queue 1: 'Audio device ops')")
+
+    def encode_audio_batch(self, audios):
+        raise NotImplementedError(
+            "audio encode is ported with the audio slice (ROADMAP.md, "
+            "queue 1: 'Audio device ops')")
+
+    def has_audio_support(self) -> bool:
+        return self._audio_config is not None
+
+    def audio_config(self) -> Optional[AudioConfig]:
+        return self._audio_config
+
+    # ------------------------------------------------------------------ #
+    # tables
+    # ------------------------------------------------------------------ #
+
+    @property
+    def ranks(self) -> dict[bytes, int]:
+        """The engine-rank table (bytes -> rank)."""
+        return self._ranks
+
+    @property
+    def decode_table(self) -> DecodeTable:
+        return self._decode_table
+
+    def cuckoo_table(self) -> CuckooPairTable:
+        """The two-choice cuckoo pair table of the merge path."""
+        if self._cuckoo_table is None:
+            self._cuckoo_table = CuckooPairTable.build(self._ranks)
+        return self._cuckoo_table
+
+    def word_map(self) -> WordDirectMap:
+        """The word-exact whole-piece table: narrow (<= 12-byte tokens)
+        unless the vocab holds a longer token, then wide (<= 24 bytes);
+        either preference falls back to the other width if its build
+        fails."""
+        if self._word_map is None:
+            max_tok = max((len(b) for b in self._ranks), default=1)
+            first, second = (True, False) if max_tok > 12 else (False, True)
+            try:
+                self._word_map = WordDirectMap.build(self._ranks, wide=first)
+            except InvalidConfigError:
+                self._word_map = WordDirectMap.build(self._ranks, wide=second)
+        return self._word_map
+
+    def device_tables(self, device=None):
+        """The encode tables on ``device`` (the tokenizer's by default),
+        built and copied once per device."""
+        from .tables import tables_from_numpy
+
+        device = self._device if device is None else device
+        key = str(device)
+        tabs = self._device_tables.get(key)
+        if tabs is None:
+            table = self.cuckoo_table()
+            wm = self.word_map()
+            tabs = tables_from_numpy(table.packed, table.byte_pair_dense(),
+                                     wm.rows, table.seed1, table.seed2,
+                                     wm.seed, device)
+            self._device_tables[key] = tabs
+        return tabs

@@ -1,0 +1,151 @@
+"""PyTorch port on the GPU: each CUDA kernel equals its plain PyTorch version
+bit for bit on adversarial inputs, and encode_batch on the card equals the
+oracle.  Marked ``cuda``: every test skips where torch sees no GPU.
+
+This file imports neither jax nor the JAX package, so it also runs on a
+machine without them:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import base64
+import random
+import string
+
+import numpy as np
+import pytest
+import torch
+
+import tekken_tpu_torch as tt
+from tekken_tpu_torch import _build
+from tekken_tpu_torch.oracle import encode_ranks
+from tekken_tpu_torch.ops.bpe import INF, merge_rows_compact
+from tekken_tpu_torch.ops.merge import merge_rows_compact_fused
+from tekken_tpu_torch.ops.pretokenize import byte_boundaries
+from tekken_tpu_torch.ops.stage1 import stage1_compact, stage1_compact_reference
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def tok():
+    """Byte tokens + prefix chains of 3000 random words (bench.py's vocab
+    construction at a small size)."""
+    rng = random.Random(7)
+    words = ["".join(rng.choice(string.ascii_lowercase)
+                     for _ in range(rng.randint(2, 11))) for _ in range(3000)]
+    tokens = [bytes([i]) for i in range(256)]
+    seen = set(tokens)
+    for w in words:
+        for b in (b" " + w.encode(), w.encode()):
+            for k in range(2, len(b) + 1):
+                if b[:k] not in seen:
+                    seen.add(b[:k])
+                    tokens.append(b[:k])
+    vocab = [tt.TokenInfo(rank=r, token_bytes=base64.b64encode(t).decode())
+             for r, t in enumerate(tokens)]
+    return tt.Tekkenizer(vocab, [], "", len(vocab) + 100, 100,
+                         tt.TokenizerVersion.V7, device="cuda"), words
+
+
+def _texts(rng, kind, n, max_len):
+    alphas = {
+        "simple": string.ascii_letters + "019.,!?';: ",
+        "general": string.ascii_letters + string.digits + " .,!?'\n\r\t",
+        "utf8": string.ascii_letters + " .,'\n" + "中文éüſ\U0001f600٣ Ω",
+    }
+    a = alphas[kind]
+    return ["".join(rng.choice(a) for _ in range(rng.randint(0, max_len)))
+            for _ in range(n)]
+
+
+def _rows(texts, R):
+    buf = np.zeros((len(texts), R), np.uint8)
+    lens = np.zeros(len(texts), np.int32)
+    for i, t in enumerate(texts):
+        d = t.encode()[:R]
+        buf[i, :len(d)] = np.frombuffer(d, np.uint8)
+        lens[i] = len(d)
+    return buf, lens
+
+
+@pytest.mark.parametrize("n_words", [0, 3, 6])
+@pytest.mark.parametrize("rules,R", [("simple", 300), ("simple", 5000),
+                                     ("general", 300), ("general", 8192),
+                                     ("external", 300), ("external", 5000)])
+def test_stage1_kernel_matches_plain(dev, rules, R, n_words):
+    rng = random.Random(R + n_words)
+    kind = {"simple": "simple", "general": "general", "external": "utf8"}[rules]
+    texts = _texts(rng, kind, 60, R) + ["", "a" * R, "a1" * (R // 2),
+                                        " " * R, "x'll 's" * 3]
+    buf, lens = _rows(texts, R)
+    b = torch.from_numpy(buf).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    kw = {"boundary": byte_boundaries(b, ln)} if rules == "external" else {}
+    wsize, wseed = (1 << 12, 0x9E3779B9) if n_words else (1, 0)
+    want = stage1_compact_reference(b, ln, n_words, wsize, wseed, rules, **kw)
+    before = _build.LAUNCHES["stage1_compact"]
+    got = stage1_compact(b, ln, n_words, wsize, wseed, rules, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stage1_compact"] == before + 1
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), (k, torch.nonzero(g != w)[:5].tolist())
+
+
+@pytest.mark.parametrize("fixed", [True, False])
+@pytest.mark.parametrize("P", [4, 8, 16, 32, 64])
+def test_merge_kernel_matches_plain(dev, tok, P, fixed):
+    tabs = tok[0].device_tables(dev)
+    rng = np.random.default_rng(P)
+    B2 = 4096
+    n0 = rng.integers(0, P + 1, B2).astype(np.int32)
+    rank = rng.choice(np.frombuffer(b"etaoinshrdlucmwfgypb ", np.uint8),
+                      size=(B2, P)).astype(np.int32)
+    rank[np.arange(P)[None, :] >= n0[:, None]] = -1
+    r = torch.from_numpy(rank).to(dev)
+    right = torch.cat([r[:, 1:], torch.full_like(r[:, :1], -1)], 1)
+    lanes = torch.arange(P, device=dev)[None, :]
+    n = torch.from_numpy(n0).to(dev)
+    q_ok = (lanes + 1 < n[:, None]) & (r >= 0) & (right >= 0)
+    pr = torch.where(q_ok, tabs.dense[torch.where(q_ok, r * 256 + right, 0)],
+                     INF).to(torch.int32)
+    rounds = P - 1 if fixed else None
+    want_r, want_n = merge_rows_compact(r, pr, n, tabs.packed, tabs.seed1,
+                                        tabs.seed2, fixed_rounds=rounds)
+    got_r, got_n = merge_rows_compact_fused(r, pr, n, tabs.packed, tabs.seed1,
+                                            tabs.seed2, fixed_rounds=rounds)
+    torch.cuda.synchronize()
+    assert bool((want_n < n).any())
+    assert torch.equal(got_n, want_n)
+    assert torch.equal(got_r, want_r)
+
+
+def test_encode_batch_on_the_card(dev, tok):
+    t, words = tok
+    rng = random.Random(3)
+    texts = []
+    for i in range(64):
+        ws = [rng.choice(words) if rng.random() < 0.9 else "".join(
+            rng.choice(string.ascii_lowercase)
+            for _ in range(rng.randint(4, 14))) for _ in range(80)]
+        doc = " ".join(ws)
+        if i % 8 == 1:
+            doc += "  double  12345"
+        if i % 8 == 2:
+            doc += " café 中文 \U0001f600"
+        texts.append(doc)
+    texts += ["", "ü", "x"]
+    _build.reset_launches()
+    got = t.encode_batch(texts)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stage1_compact"] >= 3       # one per route group
+    assert _build.LAUNCHES["merge_rows"] >= 1
+    for s, g in zip(texts, got):
+        assert g == [r + 100 for r in encode_ranks(s, t.ranks)], s

@@ -1,0 +1,79 @@
+"""PyTorch port: the Tekkenizer's host surface (construction, from_file,
+encode, decode, id helpers) equals the JAX package's, and the port keeps
+its package boundary: no import of jax or of the JAX package."""
+
+import pathlib
+import re
+
+import pytest
+
+import tekken_tpu_torch as tt
+from tekken_tpu.special_tokens import SpecialTokenPolicy as JPolicy
+from tekken_tpu_torch.special_tokens import SpecialTokenPolicy
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+TEXTS = ["Hello, World!", "it's 12345 café 中文 \U0001f600", "", "  \n\t x",
+         "don't we've I'm you'll", "a" * 300]
+
+
+def _port(tok, tmp_path=None):
+    if tmp_path is None:
+        md = tt.ModelData.from_json(tok.to_model_data().to_json())
+        return tt.Tekkenizer.from_model_data(md, device="cpu")
+    path = tmp_path / "tekken.json"
+    tok.save(path)
+    return tt.Tekkenizer.from_file(path, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["small_tokenizer", "merged_tokenizer",
+                                  "audio_tokenizer"])
+def test_host_surface_matches_jax(request, tmp_path, name):
+    tok = request.getfixturevalue(name)
+    port = _port(tok, tmp_path)
+    assert port.vocab_size() == tok.vocab_size()
+    assert port.num_special_tokens() == tok.num_special_tokens()
+    assert port.version().as_str() == tok.version().as_str()
+    assert port.vocab() == tok.vocab()
+    assert (port.bos_id(), port.eos_id()) == (tok.bos_id(), tok.eos_id())
+    assert port.has_audio_support() == tok.has_audio_support()
+    for t in TEXTS:
+        ids = tok.encode(t, True, True)
+        assert port.encode(t, True, True) == ids
+        for pol in ("KEEP", "IGNORE"):
+            assert port.decode(ids, SpecialTokenPolicy[pol]) == \
+                tok.decode(ids, JPolicy[pol])
+            assert port.decode_all(ids, SpecialTokenPolicy[pol]) == \
+                tok.decode_all(ids, JPolicy[pol])
+    for i in (0, 1, tok.num_special_tokens(), tok.vocab_size() - 1):
+        assert port.id_to_piece(i) == tok.id_to_piece(i)
+        assert port.id_to_byte_piece(i, SpecialTokenPolicy.KEEP) == \
+            tok.id_to_byte_piece(i, JPolicy.KEEP)
+    assert port.to_model_data().to_json() == tok.to_model_data().to_json()
+
+
+def test_errors_and_unported_surface(merged_tokenizer):
+    port = _port(merged_tokenizer)
+    with pytest.raises(tt.SpecialTokenPolicyError):
+        port.decode([port.bos_id()], SpecialTokenPolicy.RAISE)
+    with pytest.raises(tt.TokenNotFoundError):
+        port.get_control_token("[NOPE]")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.decode_batch([[1]], SpecialTokenPolicy.KEEP)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.encode_audio(None)
+    # an over-size batch is refused with its size, never served elsewhere
+    with pytest.raises(ValueError, match="16777216|exceeds"):
+        port.encode_batch(["x" * 70000] * 300)
+
+
+def test_port_imports_no_jax():
+    """The port and chip_smoke.py import neither jax nor the JAX package."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|tekken_tpu)\b(?!_)",
+                     re.MULTILINE)
+    files = sorted((REPO / "tekken_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        hits = pat.findall(f.read_text(encoding="utf-8"))
+        assert not hits, (f, hits)
