@@ -1,12 +1,13 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels
 from this checkout, holds each against its plain PyTorch version, drives
-Tekkenizer.encode_batch at the full width of Tekken V7, and checks the
-tokens against the oracle.
+Tekkenizer.encode_batch, the unrouted flat encode and
+Tekkenizer.decode_batch at the full width of Tekken V7, and checks the
+results against the oracle.
 
     python3 chip_smoke.py
 
 Phases:
-1. the card's name and power limit; nvcc builds of both kernels, in
+1. the card's name and power limit; nvcc builds of the four kernels, in
    parallel;
 2. the full-width configuration: 130,872 inner ranks + 1,000 specials
    from prefix chains over 40,000 random words (bench.py's builders,
@@ -14,6 +15,11 @@ Phases:
 3. each kernel against its plain version, bit for bit, on the card:
    stage 1 with rules simple / general / external at (1024, 2048) and a
    long-row case at R = 2^16; the merge at P = 4, 8, 32, fixed and looped;
+   the fused stage 1 for n_words 0, 3 and 6 at (1024, 2048) and on rows
+   of 2^16 (one that is one piece, empty ones, lengths no multiple of the
+   tile); the decode store at T = 65,536 for 65,536, 65,535, 1 and 0
+   tokens of random ranks over the whole vocabulary, over all out_cap
+   bytes;
 4. the main path: encode_batch on a route-1 batch (4096 x 2048, the
    bench shape, with out-of-vocabulary words so the P=4 and P=8 merge
    buckets and the host splice run), a route-2 and a route-3 batch
@@ -21,8 +27,17 @@ Phases:
    launch counts are zeroed just before and read just after; a sample
    of 64 docs per batch is held against the oracle; throughput, the
    device time and a per-stage breakdown are printed;
-5. the kernels at the main path's own inputs: kernel time, plain time,
-   bound, and one JSON line ``{"kernels": [...]}``;
+   path B, the unrouted flat encode (PackedEncoder._encode_buffer with
+   route None) on the route-1 batch (the simple branch: the fused stage 1)
+   and the route-2 and route-3 batches (the general and UTF-8 branches),
+   64 docs per batch held against the oracle and every doc against the
+   routed result; path A, decode_batch over the route-1 batch's token
+   lists with BOS/EOS (~1.6 M tokens, ~25 chunks of 2^16): every doc
+   round-trips to its text and 64 docs equal the host decode under KEEP
+   and IGNORE.  Each path zeroes the launch counts just before it and
+   reads them just after; MB/s is the median of 5 calls after a warm-up;
+5. the kernels at the paths' own inputs: time, plain time, bound, and one
+   JSON line ``{"kernels": [...]}`` for all four;
 6. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a GPU the script exits
@@ -46,18 +61,23 @@ if not torch.cuda.is_available():
 import tekken_tpu_torch as tt  # noqa: E402
 from tekken_tpu_torch import _build  # noqa: E402
 from tekken_tpu_torch.oracle import encode_ranks  # noqa: E402
+from tekken_tpu_torch.ops import decode as decode_mod  # noqa: E402
 from tekken_tpu_torch.ops import packed as packed_mod  # noqa: E402
 from tekken_tpu_torch.ops.bpe import INF, merge_rows_compact  # noqa: E402
+from tekken_tpu_torch.ops.decode import (  # noqa: E402
+    DeviceDecoder, decode_bytes_compact, decode_bytes_compact_reference)
 from tekken_tpu_torch.ops.merge import merge_rows_compact_fused  # noqa: E402
 from tekken_tpu_torch.ops.pretokenize import byte_boundaries  # noqa: E402
 from tekken_tpu_torch.ops.stage1 import (  # noqa: E402
-    stage1_compact, stage1_compact_reference)
+    stage1_compact, stage1_compact_reference, stage1_fused,
+    stage1_fused_reference)
 from tekken_tpu_torch.special_tokens import (  # noqa: E402
-    get_deprecated_special_tokens)
+    SpecialTokenPolicy, get_deprecated_special_tokens)
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-INT32_OPS_PER_S = 33.5e12      # H100 SXM: 64 INT32 lanes/SM/clock, 132 SMs
+# H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 N_SPECIAL = 1000
 # the configuration's scale: bench.py's shape (B_MAIN x ROW bytes) and
 # vocabulary; the route-2/3 batches and the parity cases take B_SIDE rows
@@ -69,7 +89,14 @@ KERNELS = {
                        "tekken_tpu/ops/pallas_stage1.py:152"),
     "merge_rows": ("tekken_tpu_torch/csrc/merge_rows.cu",
                    "tekken_tpu/ops/pallas_merge.py:52"),
+    "stage1_fused": ("tekken_tpu_torch/csrc/stage1_fused.cu",
+                     "tekken_tpu/ops/pallas_stage1.py:77"),
+    "decode_store": ("tekken_tpu_torch/csrc/decode_store.cu",
+                     "tekken_tpu/ops/decode.py:82"),
 }
+# the stages of the encode paths that run on the card (StageClock names)
+DEVICE_STAGES = ("utf8_flags", "branch", "stage1", "probe_emit", "p23",
+                 "merge")
 
 
 def log(*a):
@@ -232,6 +259,43 @@ def stage1_bound_ms(byts, n_words, rules):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def fused_bound_ms(byts, n_words):
+    B, R = byts.shape
+    moved = B * R + 4 * B                                         # in
+    moved += (2 + n_words if n_words else 1) * B * R * 4          # out
+    ops = 64 * B * R        # ~64 integer operations a byte: rules, hash
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def decode_bound_ms(n_tokens, total, out_cap):
+    # what the function needs: each live token's id and its table length
+    # read once, each output byte's int32 table lane read once, every
+    # out_cap byte written once (the offsets are the wrapper's own
+    # intermediate); a handful of operations a byte
+    moved = 8 * n_tokens + 4 * total + out_cap
+    ops = 8 * total
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def median_s(fn, reps=5):
+    """(median, min, max) host seconds of fn() over reps calls after one
+    warm-up, each ended by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    walls.sort()
+    return walls[len(walls) // 2], walls[0], walls[-1]
+
+
 def merge_bound_ms(rank, n_in, n_out):
     B2, P = rank.shape
     merges = int((n_in - n_out).sum())
@@ -277,10 +341,10 @@ def main():
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()}")
 
-    # ---- 1. build both kernels in parallel ----
+    # ---- 1. build the kernels in parallel ----
     t0 = time.perf_counter()
     built = _build.build()
-    log(f"[build] both kernels in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s")
     for name, info in built.items():
         log(f"[build] {name}: {info['seconds']:.2f} s "
             f"cached={info['cached']}")
@@ -381,10 +445,41 @@ def main():
             log(f"[parity] merge_rows P={P} rows={B2} fixed_rounds={fixed}: "
                 f"identical, {int((n - got[1]).sum())} merges")
 
+    long_rows = ["a" * LONG_ROW, "", "b" * (LONG_ROW - 513)] + [
+        long_txt[:LONG_ROW - 7 * k - 1] for k in range(5)]
+    f_cases = [(rows(r1[:B_SIDE], ROW), nw) for nw in (0, 3, 6)]
+    f_cases.append((rows(long_rows, LONG_ROW), nw_main))
+    for (b, ln), nw in f_cases:
+        ws_, sd_ = (wsize, tabs.wseed) if nw else (1, 0)
+        got = stage1_fused(b, ln, nw, ws_, sd_)
+        want = stage1_fused_reference(b, ln, nw, ws_, sd_)
+        torch.cuda.synchronize()
+        check_equal(f"stage1_fused {tuple(b.shape)} n_words={nw}", got, want)
+        log(f"[parity] stage1_fused (B,R)={tuple(b.shape)} n_words={nw}: "
+            f"{len(got)} planes identical at every lane, "
+            f"{int((got[0] > 0).sum())} pieces")
+    if int(got[0][0, 0]) != LONG_ROW:
+        raise AssertionError("stage1_fused: the one-piece row lost its piece")
+
+    dec = DeviceDecoder(tok, device="cuda")
+    g = np.random.default_rng(6)
+    for n_tok in (65536, 65535, 1, 0):
+        ranks_np = g.integers(0, dec._n_ranks, 65536, dtype=np.int32)
+        t_ = torch.from_numpy(ranks_np).to(DEV)
+        cap_ = dec.out_cap_for(ranks_np[:n_tok])
+        got = decode_bytes_compact(t_, n_tok, dec._bytes32, dec._lentab, cap_)
+        want = decode_bytes_compact_reference(t_, n_tok, dec._bytes32,
+                                              dec._lentab, cap_)
+        torch.cuda.synchronize()
+        check_equal(f"decode_store n_tokens={n_tok}", got, want)
+        log(f"[parity] decode_store T=65536 n_tokens={n_tok} sw4={dec._sw4}:"
+            f" all {cap_} bytes identical, total {int(got[1])}")
+
     # ---- 4. the main path ----
     launches = {k: 0 for k in _build.LAUNCHES}
     captured = {}
     results = {}
+    routed_out = {}
     for name, texts in batches.items():
         nbytes = sum(len(t.encode("utf-8")) for t in texts)
         with Capture(packed_mod, "stage1_compact") as c1, \
@@ -394,6 +489,7 @@ def main():
             torch.cuda.synchronize()
             counts = dict(_build.LAUNCHES)
         captured[name] = (c1.calls, c2.calls)
+        routed_out[name] = out
         for k, v in counts.items():
             launches[k] += v
         stats = tok.last_batch_stats
@@ -408,27 +504,18 @@ def main():
                                      f"oracle")
         n_tok = sum(len(x) for x in out)
 
-        # end to end (host pack + device + readback + host splice), the
-        # median of 5 calls after the checked one
-        walls = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            tok.encode_batch(texts)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        walls.sort()
-        e2e = walls[len(walls) // 2]
+        # end to end (host pack + device + readback + host splice)
+        e2e, lo_, hi_ = median_s(lambda: tok.encode_batch(texts))
         clock = packed_mod.StageClock()
         tok.encode_batch(texts, clock=clock)
         # the stages that run on the card (each mark synchronizes)
-        dev_ms = sum(clock.times.get(k, 0.0) for k in (
-            "utf8_flags", "stage1", "probe_emit", "p23", "merge")) * 1e3
+        dev_ms = sum(clock.times.get(k, 0.0) for k in DEVICE_STAGES) * 1e3
         results[name] = {
             "docs": len(texts), "bytes": nbytes, "tokens": n_tok,
             "launches": counts, "overflow_rows": stats["overflow_rows"],
             "fb_spans": stats["fb_spans"], "e2e_s": e2e,
             "e2e_MB_per_s": nbytes / e2e / 1e6, "e2e_min_max_s":
-            [walls[0], walls[-1]], "device_ms": dev_ms,
+            [lo_, hi_], "device_ms": dev_ms,
             "stages_ms": {k: v * 1e3 for k, v in clock.times.items()},
         }
         log(f"[main] {name}: {len(texts)} docs, {nbytes} bytes, {n_tok} "
@@ -436,15 +523,113 @@ def main():
             f"{stats['overflow_rows']}, fb spans {stats['fb_spans']}; "
             f"64-doc oracle sample identical")
         log(f"[main] {name}: end to end median of 5 {e2e * 1e3:.1f} ms "
-            f"(min {walls[0] * 1e3:.1f}, max {walls[-1] * 1e3:.1f}) = "
+            f"(min {lo_ * 1e3:.1f}, max {hi_ * 1e3:.1f}) = "
             f"{nbytes / e2e / 1e6:.2f} MB/s; device path {dev_ms:.2f} ms; "
             "stages ms " + json.dumps(
                 {k: round(v * 1e3, 3) for k, v in clock.times.items()}))
-    log(f"[main] launches over the main path: {launches}")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main "
-                                 f"path")
+    log(f"[main] launches over the routed encode path: {launches}")
+    for k in ("stage1_compact", "merge_rows"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the "
+                                 f"routed encode path")
+
+    # ---- path B: the unrouted flat encode ----
+    flat_calls = {}
+    flat_launches = {k: 0 for k in _build.LAUNCHES}
+    for name in ("route1_bench", "route2", "route3"):
+        texts = batches[name]
+        nbytes = sum(len(t.encode("utf-8")) for t in texts)
+        enc = tok._get_packed_encoder(texts)
+
+        def flat_run(clock=None, texts=texts, enc=enc):
+            buf, lens = enc.pack(texts)
+            return enc._encode_buffer(buf, lens, len(texts), None, clock)
+
+        with Capture(packed_mod, "stage1_fused") as c1, \
+                Capture(packed_mod, "merge_rows_compact_fused") as c2:
+            _build.reset_launches()
+            out = flat_run()
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+        flat_calls[name] = (c1.calls, c2.calls)
+        for k, v in counts.items():
+            flat_launches[k] += v
+        want_fused = 1 if name == "route1_bench" else 0
+        if counts["stage1_fused"] != want_fused or counts["stage1_compact"]:
+            raise AssertionError(f"flat {name}: stage-1 launches {counts}")
+        routed = routed_out[name]
+        for i, (a, b) in enumerate(zip(out, routed)):
+            if [r + N_SPECIAL for r in a] != b:
+                raise AssertionError(f"flat {name}: doc {i} differs from the "
+                                     f"routed encode_batch")
+        sample = random.Random(len(name) + 1).sample(range(len(texts)), 64)
+        for i in sample:
+            if out[i] != encode_ranks(texts[i], ranks):
+                raise AssertionError(f"flat {name}: doc {i} differs from the "
+                                     f"oracle")
+        e2e, lo_, hi_ = median_s(flat_run)
+        clock = packed_mod.StageClock()
+        flat_run(clock)
+        dev_ms = sum(clock.times.get(k, 0.0) for k in DEVICE_STAGES) * 1e3
+        results[f"flat_{name}"] = {
+            "docs": len(texts), "bytes": nbytes, "launches": counts,
+            "e2e_s": e2e, "e2e_MB_per_s": nbytes / e2e / 1e6,
+            "e2e_min_max_s": [lo_, hi_], "device_ms": dev_ms,
+            "stages_ms": {k: v * 1e3 for k, v in clock.times.items()}}
+        log(f"[flat] {name}: {len(texts)} docs, {nbytes} bytes; launches "
+            f"{counts}; every doc equals the routed result, 64-doc oracle "
+            f"sample identical")
+        log(f"[flat] {name}: end to end median of 5 {e2e * 1e3:.1f} ms "
+            f"(min {lo_ * 1e3:.1f}, max {hi_ * 1e3:.1f}) = "
+            f"{nbytes / e2e / 1e6:.2f} MB/s; device path {dev_ms:.2f} ms; "
+            "stages ms " + json.dumps(
+                {k: round(v * 1e3, 3) for k, v in clock.times.items()}))
+    log(f"[flat] launches over the flat encode path: {flat_launches}")
+    for k in ("stage1_fused", "merge_rows"):
+        if flat_launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the flat "
+                                 f"encode path")
+
+    # ---- path A: decode_batch ----
+    texts = batches["route1_bench"]
+    bos, eos = tok.bos_id(), tok.eos_id()
+    ids = [[bos] + x + [eos] for x in routed_out["route1_bench"]]
+    n_ids = sum(len(x) for x in ids)
+    with Capture(decode_mod, "decode_bytes_compact") as c3, \
+            Capture(decode_mod, "_decode_store") as c4:
+        _build.reset_launches()
+        got = tok.decode_batch(ids, SpecialTokenPolicy.IGNORE)
+        torch.cuda.synchronize()
+        dec_launches = dict(_build.LAUNCHES)
+    dec_calls, store_calls = c3.calls, c4.calls
+    log(f"[decode] launches over the decode path: {dec_launches}")
+    if dec_launches["decode_store"] <= 0:
+        raise AssertionError("kernel decode_store was not launched on the "
+                             "decode path")
+    if got != texts:
+        bad = next(i for i, (a, b) in enumerate(zip(got, texts)) if a != b)
+        raise AssertionError(f"decode_batch: doc {bad} does not round-trip")
+    keep = tok.decode_batch(ids, SpecialTokenPolicy.KEEP)
+    for i in random.Random(5).sample(range(len(ids)), 64):
+        for pol, have in ((SpecialTokenPolicy.KEEP, keep),
+                          (SpecialTokenPolicy.IGNORE, got)):
+            if have[i] != tok.decode(ids[i], pol):
+                raise AssertionError(f"decode_batch {pol.name}: doc {i} "
+                                     f"differs from the host decode")
+    out_bytes = sum(len(t.encode("utf-8")) for t in texts)
+    d_e2e, d_lo, d_hi = median_s(
+        lambda: tok.decode_batch(ids, SpecialTokenPolicy.IGNORE))
+    results["decode_route1_bench"] = {
+        "docs": len(ids), "tokens": n_ids, "bytes_out": out_bytes,
+        "launches": dec_launches, "e2e_s": d_e2e,
+        "e2e_MB_per_s": out_bytes / d_e2e / 1e6, "e2e_min_max_s": [d_lo, d_hi]}
+    log(f"[decode] route1_bench: {len(ids)} docs, {n_ids} tokens with "
+        f"BOS/EOS, {out_bytes} bytes out in {len(dec_calls)} chunks; every "
+        f"doc round-trips, 64 docs equal the host decode under KEEP and "
+        f"IGNORE")
+    log(f"[decode] route1_bench: end to end median of 5 {d_e2e * 1e3:.1f} ms "
+        f"(min {d_lo * 1e3:.1f}, max {d_hi * 1e3:.1f}) = "
+        f"{out_bytes / d_e2e / 1e6:.2f} MB/s")
 
     # ---- 5. the kernels at the main path's own inputs ----
     s1_calls, m_calls = captured["route1_bench"]
@@ -481,6 +666,40 @@ def main():
             f"{pm:.3f} ms, bound {bnd:.5f} ms ({by2}), "
             f"{int((n - got[1]).sum())} merges")
     k = len(m_calls)
+
+    f_calls = flat_calls["route1_bench"][0]
+    (b, ln, nw, ws_, wseed_), _ = f_calls[0]
+    got = stage1_fused(b, ln, nw, ws_, wseed_)
+    want = stage1_fused_reference(b, ln, nw, ws_, wseed_)
+    err4 = check_equal("stage1_fused main path", got, want)
+    ms4 = cuda_ms(lambda: stage1_fused(b, ln, nw, ws_, wseed_), 20)
+    plain4 = cuda_ms(lambda: stage1_fused_reference(b, ln, nw, ws_, wseed_), 3)
+    bound4, by4 = fused_bound_ms(b, nw)
+    log(f"[kernel] stage1_fused at {tuple(b.shape)} n_words={nw}: "
+        f"{ms4:.4f} ms, plain {plain4:.3f} ms, bound {bound4:.4f} ms ({by4})")
+
+    tot3 = plain3 = bound3 = 0.0
+    err3 = 0
+    by3 = "bytes"
+    for (t_, n_tok, b32, lt, cap_), _ in dec_calls:
+        got = decode_bytes_compact(t_, n_tok, b32, lt, cap_)
+        want = decode_bytes_compact_reference(t_, n_tok, b32, lt, cap_)
+        err3 = max(err3, check_equal("decode_store main path", got, want))
+        tot3 += cuda_ms(lambda: decode_bytes_compact(t_, n_tok, b32, lt,
+                                                     cap_), 20)
+        plain3 += cuda_ms(lambda: decode_bytes_compact_reference(
+            t_, n_tok, b32, lt, cap_), 3)
+        bnd, by3 = decode_bound_ms(n_tok, int(got[1]), cap_)
+        bound3 += bnd
+    k3 = len(dec_calls)
+    # the launch alone, without the wrapper's torch gather and cumsum
+    alone3 = sum(cuda_ms(lambda: decode_mod._decode_store(*a), 20)
+                 for a, _ in store_calls) / len(store_calls)
+    log(f"[kernel] decode_store over {k3} chunks (T={dec_calls[0][0][0].shape[0]},"
+        f" sw4={dec_calls[0][0][2].shape[1]}): {tot3 / k3:.4f} ms a call of "
+        f"the wrapper, {alone3:.4f} ms the launch alone, plain "
+        f"{plain3 / k3:.3f} ms, bound {bound3 / k3:.5f} ms ({by3})")
+
     line = {"kernels": [
         {"name": "stage1_compact", "route": "cuda",
          "source": KERNELS["stage1_compact"][0],
@@ -491,9 +710,21 @@ def main():
         {"name": "merge_rows", "route": "cuda",
          "source": KERNELS["merge_rows"][0],
          "replaces": KERNELS["merge_rows"][1],
-         "launches": launches["merge_rows"], "max_abs_err": err2,
-         "ms": tot_ms / k, "plain_ms": tot_plain / k,
+         "launches": launches["merge_rows"] + flat_launches["merge_rows"],
+         "max_abs_err": err2, "ms": tot_ms / k, "plain_ms": tot_plain / k,
          "bound_ms": tot_bound / k, "bound_by": by_max[1],
+         "library_ms": None},
+        {"name": "decode_store", "route": "cuda",
+         "source": KERNELS["decode_store"][0],
+         "replaces": KERNELS["decode_store"][1],
+         "launches": dec_launches["decode_store"], "max_abs_err": err3,
+         "ms": tot3 / k3, "plain_ms": plain3 / k3, "bound_ms": bound3 / k3,
+         "bound_by": by3, "library_ms": None},
+        {"name": "stage1_fused", "route": "cuda",
+         "source": KERNELS["stage1_fused"][0],
+         "replaces": KERNELS["stage1_fused"][1],
+         "launches": flat_launches["stage1_fused"], "max_abs_err": err4,
+         "ms": ms4, "plain_ms": plain4, "bound_ms": bound4, "bound_by": by4,
          "library_ms": None},
     ]}
     log("[main] per-batch summary " + json.dumps(results))

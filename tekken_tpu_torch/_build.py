@@ -6,15 +6,18 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  Nothing is built
+The library name carries a hash of the flags, the source and every
+``csrc`` header it includes (``#include "..."``, followed recursively), so
+an edited source or header is rebuilt and a stale library is never
+loaded.  Nothing is built
 when the package is imported: the first wrapper call on a CUDA tensor
 builds what it needs, and ``build()`` builds every kernel at once, one
 nvcc process per source, all started together.
 
-``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
-it launches its kernel and nowhere else, so a caller can zero the counts,
-run the encode path and read which kernels it went through.
+``LAUNCHES`` counts kernel launches by name.  ``launch`` adds one where a
+C entry point launched its kernel and nowhere else (not where an empty
+input left nothing to launch), so a caller can zero the counts, run the
+encode path and read which kernels it went through.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,9 +52,22 @@ KERNELS = {
         "merge_rows.cu", "tk_merge_rows",
         [_P, _P, _P, _P, _U, _U, _U, _I, _I, _I, _I, _P, _P, _P],
         "tk_merge_error"),
+    "stage1_fused": (
+        "stage1_fused.cu", "tk_stage1_fused",
+        [_P, _P, _I, _I, _I, _U, _U, _P, _P],
+        "tk_stage1_fused_error"),
+    "decode_store": (
+        "decode_store.cu", "tk_decode_store",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
+        "tk_decode_error"),
 }
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
 LAUNCHES = {name: 0 for name in KERNELS}
+# what a C entry point returns when its input is empty and it launched
+# nothing (CUDA error codes are >= 0)
+NO_LAUNCH = -1
 
 # name -> nvcc's report (seconds, ptxas register/shared-memory lines)
 BUILD_LOG: dict[str, dict] = {}
@@ -77,10 +94,26 @@ def nvcc() -> str:
     return path
 
 
+def _sources(src: str) -> list[str]:
+    """``src`` and the csrc files it includes, recursively, in the order
+    first met."""
+    seen: list[str] = []
+    todo = [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(os.path.join(SRC_DIR, path), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def _lib_path(name: str) -> str:
-    src = os.path.join(SRC_DIR, KERNELS[name][0])
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(KERNELS[name][0]):
+        with open(os.path.join(SRC_DIR, path), "rb") as f:
+            digest.update(path.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -137,11 +170,16 @@ def entry(name: str):
     return got[1], got[2]
 
 
-def launch(name: str, *args) -> None:
-    """Call a kernel's C entry point; raise on a launch error; count it."""
+def launch(name: str, *args) -> bool:
+    """Call a kernel's C entry point; raise on a launch error.  Returns
+    True and counts the launch, or False where the entry point had no work
+    to launch (it returns NO_LAUNCH for an empty input)."""
     fn, err = entry(name)
     rc = fn(*args)
+    if rc == NO_LAUNCH:
+        return False
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{err(rc).decode()} ({rc})")
     LAUNCHES[name] += 1
+    return True

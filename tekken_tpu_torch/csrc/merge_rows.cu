@@ -132,14 +132,15 @@ void launch(const int32_t* rank, const int32_t* pr, const int32_t* n_seg,
 extern "C" {
 
 // table: (size, 4) int32 rows [left, right, merged, 0], size a power of two.
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success), or -1
+// without a launch for no rows.
 int tk_merge_rows(const int32_t* rank, const int32_t* pr,
                   const int32_t* n_seg, const int32_t* table,
                   unsigned int size_mask, unsigned int seed1,
                   unsigned int seed2, int B2, int P, int lane_bits,
                   int max_rounds, int32_t* rank_out, int32_t* n_out,
                   void* stream) {
-  if (B2 <= 0) return 0;
+  if (B2 <= 0) return -1;  // nothing to launch
   if (P < 1 || P > 64) return static_cast<int>(cudaErrorInvalidValue);
   const int4* t = reinterpret_cast<const int4*>(table);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

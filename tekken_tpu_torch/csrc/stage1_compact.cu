@@ -34,79 +34,13 @@
 // The hashes are uint32 arithmetic (the TPU kernel emulated it in int32
 // with logical shifts).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "stage1_rules.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBig = 1 << 30;
 constexpr int kGeneralMaxRow = 8192;
 
-constexpr uint32_t K1 = 0x9E3779B1u;
-constexpr uint32_t K2 = 0x85EBCA77u;
-constexpr uint32_t K3 = 0xC2B2AE3Du;
-constexpr uint32_t K4 = 0x27D4EB2Fu;
-
 enum Rules { kSimple = 0, kGeneral = 1, kExternal = 2 };
-
-// per-char class word: 0 for an invalid lane (outside [0, length))
-enum {
-  kL = 1, kN = 2, kW = 4, kP = 8, kNL = 16, kSP = 32, kAP = 64, kValid = 128
-};
-
-__device__ __forceinline__ int char_info(int b) {
-  const int lo = b | 32;
-  const bool l = lo >= 97 && lo <= 122;
-  const bool n = b >= 48 && b <= 57;
-  const bool w = b == 32 || (b >= 9 && b <= 13);
-  int fold = 0;
-  if (l) {
-    switch (lo) {
-      case 's': fold = 1; break;
-      case 't': fold = 2; break;
-      case 'r': fold = 3; break;
-      case 'e': fold = 4; break;
-      case 'v': fold = 5; break;
-      case 'm': fold = 6; break;
-      case 'l': fold = 7; break;
-      case 'd': fold = 8; break;
-      default: break;
-    }
-  }
-  return kValid | (l ? kL : 0) | (n ? kN : 0) | (w ? kW : 0) |
-         ((!l && !n && !w) ? kP : 0) | ((b == 13 || b == 10) ? kNL : 0) |
-         (b == 32 ? kSP : 0) | (b == 39 ? kAP : 0) | (fold << 8);
-}
-
-// run class: letter 0, number 1, whitespace 2, other 3, invalid 4
-__device__ __forceinline__ int group(int info) {
-  if (info & kL) return 0;
-  if (info & kN) return 1;
-  if (info & kW) return 2;
-  if (info & kP) return 3;
-  return 4;
-}
-
-__device__ __forceinline__ int fold_of(int info) { return (info >> 8) & 31; }
-
-// Class words read straight from the row (simple rules).
-struct GlobalRow {
-  const uint8_t* row;
-  int len;
-  __device__ int info(int j) const {
-    return (j >= 0 && j < len) ? char_info(__ldg(row + j)) : 0;
-  }
-  // change at a lane j >= 0 (the rules only read it where it matters)
-  __device__ bool change(int j) const {
-    if (j < 0) return false;
-    return j == 0 || group(info(j)) != group(info(j - 1));
-  }
-  __device__ bool change_next(int j) const {
-    return group(info(j)) != group(info(j + 1));
-  }
-};
 
 // Class words and scans held in shared memory (general rules).
 struct SharedRow {
@@ -122,53 +56,6 @@ struct SharedRow {
     return j >= R - 1 || group(inf[j]) != group(inf[j + 1]);
   }
 };
-
-// contraction at a free length-1 apostrophe run at lane j: bit 0 consumes
-// one letter ('s 't 'm 'd), bit 1 two ('re 've 'll)
-template <class Row>
-__device__ int contraction(const Row& rw, int j) {
-  if (j < 0) return 0;
-  const int c = rw.info(j);
-  if (!(c & kP) || !(c & kAP)) return 0;
-  if (!rw.change(j) || !rw.change_next(j)) return 0;
-  if (rw.info(j - 1) & kSP) return 0;
-  const int n1 = rw.info(j + 1);
-  if (!(n1 & kL)) return 0;
-  const int n2 = rw.info(j + 2);
-  const bool has_l2 = (n2 & kL) && !rw.change(j + 2);
-  const int f1 = fold_of(n1), f2 = fold_of(n2);
-  const bool one = f1 == 1 || f1 == 2 || f1 == 6 || f1 == 8;
-  const bool two = ((f1 == 3 || f1 == 5) && has_l2 && f2 == 4) ||
-                   (f1 == 7 && has_l2 && f2 == 7);
-  return (one ? 1 : 0) | (two ? 2 : 0);
-}
-
-// the rules shared by both rule sets (letters, digits-at-change, punct)
-template <class Row>
-__device__ void common_rules(const Row& rw, int i, int c, int m1, int m2,
-                             bool chg, bool chg1, bool chg2, bool* b_ls,
-                             bool* b_lc, bool* b_p) {
-  const bool absorbed = ((m1 & kW) && !(m1 & kNL)) ||
-                        ((m1 & kP) && chg1 && !(m2 & kSP));
-  *b_ls = (c & kL) && chg && !(i > 0 && absorbed);
-  *b_lc = (c & kL) && !chg &&
-          ((chg1 && (contraction(rw, i - 2) & 1)) ||
-           (chg2 && !chg1 && (contraction(rw, i - 3) & 2)));
-  *b_p = (c & kP) && chg && !(i > 0 && (m1 & kSP));
-}
-
-// simple rules (no whitespace run > 1, no digit run > 3) at a valid lane
-__device__ bool boundary_simple(const GlobalRow& rw, int i) {
-  const int c = rw.info(i), m1 = rw.info(i - 1), m2 = rw.info(i - 2);
-  const bool chg = i == 0 || group(c) != group(m1);
-  const bool chg1 = rw.change(i - 1);
-  const bool chg2 = rw.change(i - 2);
-  bool b_ls, b_lc, b_p;
-  common_rules(rw, i, c, m1, m2, chg, chg1, chg2, &b_ls, &b_lc, &b_p);
-  const bool b_num = (c & kN) && chg;
-  const bool b_ws = (c & kW) && !((m1 & kP) && (c & kNL));
-  return b_num || b_ls || b_lc || b_p || b_ws;
-}
 
 // general rules at a valid lane, from the per-row scans in shared memory
 __device__ bool boundary_general(const SharedRow& rw, const int* S,
@@ -202,45 +89,6 @@ __device__ bool boundary_general(const SharedRow& rw, const int* S,
   return b_num || b_ls || b_lc || b_p || is_entry || b_ws_tail || b_ws_last;
 }
 
-struct MaxOp {
-  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
-};
-struct MinOp {
-  __device__ int operator()(int a, int b) const { return a < b ? a : b; }
-};
-struct AddOp {
-  __device__ int operator()(int a, int b) const { return a + b; }
-};
-
-// Block-wide inclusive scan in thread order; *total gets the block
-// aggregate.  `buf` holds kWarps ints of shared memory.
-template <class Op>
-__device__ int block_scan(int v, int identity, Op op, int* buf, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x = op(x, y);
-  }
-  if (lane == 31) buf[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kWarps ? buf[lane] : identity;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w = op(w, y);
-    }
-    if (lane < kWarps) buf[lane] = w;
-  }
-  __syncthreads();
-  const int res = warp > 0 ? op(buf[warp - 1], x) : x;
-  *total = buf[kWarps - 1];
-  __syncthreads();
-  return res;
-}
-
 struct Outputs {
   int32_t* start;
   int32_t* plen;
@@ -257,23 +105,9 @@ struct Outputs {
 __device__ void write_record(const Outputs& o, const uint8_t* row,
                              size_t row_off, int id, int s, int L) {
   uint32_t w[6];
-  for (int j = 0; j < o.nw; ++j) {
-    uint32_t v = 0;
-    for (int b = 0; b < 4; ++b) {
-      const int k = 4 * j + b;
-      if (k < L) v |= static_cast<uint32_t>(__ldg(row + s + k)) << (8 * b);
-    }
-    w[j] = v;
-  }
-  uint32_t slot = 0;
-  if (o.n_words) {
-    uint32_t h = (w[0] * K1) ^ (w[1] * K2) ^ (w[2] * K3) ^
-                 (static_cast<uint32_t>(L) * K4) ^ o.wseed;
-    h ^= h >> 15;
-    h *= K3;
-    h ^= h >> 13;
-    slot = h & o.size_mask;
-  }
+  piece_dwords(row, s, L, o.nw, w);
+  const uint32_t slot =
+      o.n_words ? word_slot(w[0], w[1], w[2], L, o.wseed, o.size_mask) : 0;
   const size_t at = row_off + id;
   o.start[at] = s;
   o.plen[at] = L;
@@ -408,13 +242,14 @@ stage1_compact_kernel(const uint8_t* __restrict__ byts,
 extern "C" {
 
 // out: (3 + nw) planes of B*R int32 (start, plen, slot, ws[0..nw)).
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success), or -1
+// without a launch for an empty buffer.
 int tk_stage1_compact(const uint8_t* byts, const uint8_t* flags,
                       const int32_t* lengths, int B, int R, int rules,
                       int n_words, int nw, unsigned int size_mask,
                       unsigned int wseed, int32_t* out, int32_t* cnt,
                       void* stream) {
-  if (B <= 0 || R <= 0) return 0;
+  if (B <= 0 || R <= 0) return -1;  // nothing to launch
   if (rules == kGeneral && R > kGeneralMaxRow)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t plane = static_cast<size_t>(B) * R;

@@ -1,8 +1,9 @@
 """Packed batched encode on the device: the port's main path.
 
-The counterpart of the JAX package's ops/packed.py, routed pipeline only
-(routes 1-3, device merge, default settings).  A (B, R) buffer of
-document rows goes through:
+The counterpart of the JAX package's ops/packed.py, device merge, default
+settings: the routed pipeline (routes 1-3) and the unrouted flat path
+(``route=None``, ``_flat_encode``).  On the routed pipeline a (B, R)
+buffer of document rows goes through:
 
 1. stage 1 (ops/stage1.py, a CUDA kernel): piece-start flags (simple or
    general ASCII rules in-kernel, or route 3's UTF-8 flags from
@@ -22,11 +23,19 @@ document rows goes through:
    spliced at their spans, and rows whose pieces overflowed a bucket are
    re-encoded exactly.
 
-The JAX package picks its tiers with ``lax.cond`` ladders; here each count
-is read once to the host and the same tier is taken in Python, so every
-capacity (and with it ``overflow`` and ``row_bad``) is the reference's.
-One departure: the long bucket's tier covers every row it fills (fallback
-rows included), not just the mergeable ones (ROADMAP.md, queue 3).
+The flat path runs at byte granularity with no compaction: a branch
+chain picks the stage-1 rules for the whole buffer (the fused stage-1
+kernel, ops/stage1.py, for simple ASCII; the general ASCII or UTF-8 flags
+in plain torch otherwise), every byte position probes the word map, and
+the misses of 2-4, 5-8 and > 8 bytes go to the P=4, P=8 and P=32 merge
+buckets (there is no P23 tier).
+
+The JAX package picks its branches and tiers with ``lax.cond``; here each
+predicate and count is read once to the host and the same branch or tier
+is taken in Python, so every capacity (and with it ``overflow`` and
+``row_bad``) is the reference's.  One departure: the long bucket's tier
+covers every row it fills (fallback rows included), not just the
+mergeable ones (ROADMAP.md, queue 3).
 """
 
 from __future__ import annotations
@@ -37,9 +46,11 @@ import numpy as np
 import torch
 
 from .bpe import INF, probe2
+from .hashing import to_i32
 from .merge import merge_rows_compact_fused
-from .pretokenize import byte_boundaries, row_valid
-from .stage1 import stage1_compact
+from .pretokenize import (GENERAL_MAX_ROW, ascii_boundaries, byte_boundaries,
+                          row_valid)
+from .stage1 import stage1_compact, stage1_fused, stage1_planes
 
 __all__ = ["P_LANES", "P_SHORT", "PackedEncoder", "StageClock",
            "default_np_cap", "doc_routes", "host_route", "oracle_merge_fn",
@@ -93,28 +104,160 @@ def _tier(count: int, tiers) -> int:
     return tiers[-1]
 
 
-def packed_encode(byts, lengths, tables, route: int, np_cap: int | None = None,
-                  fb_len_limit: int = P_SHORT, clock=None):
+def packed_encode(byts, lengths, tables, route: int | None,
+                  np_cap: int | None = None, fb_len_limit: int = P_SHORT,
+                  clock=None):
     """Encode a (B, R) uint8 buffer of document rows with a host-chosen
-    route (1 simple ASCII / 2 general ASCII / 3 UTF-8).
+    route (1 simple ASCII / 2 general ASCII / 3 UTF-8) or, with ``route``
+    None, on the unrouted flat path, which picks the rules on the device.
 
     Returns (tok, n_out, fb_start, fb_len, overflow, row_bad):
     tok int32 (B*R,) — tok[i] >= 0 is the token placed at flat byte i, in
-    byte order; n_out its count (0-d tensor); fb_start / fb_len (NP32,)
-    the byte spans of misses longer than ``fb_len_limit`` (-1 / 0 = none),
-    which the host merges and splices; overflow (int) nonzero when a
-    bucket overflowed; row_bad int32 (B,) the rows holding dropped pieces,
-    which the host re-encodes."""
-    if route not in (1, 2, 3):
-        raise ValueError(f"route must be 1, 2 or 3, got {route!r} (the "
-                         f"unrouted flat path is not ported)")
+    byte order; n_out its count (0-d tensor); fb_start / fb_len the byte
+    spans of misses longer than ``fb_len_limit`` (-1 / 0 = none), which
+    the host merges and splices — (NP32,) on the routed pipeline, (NPT,)
+    on the flat path; overflow (int) nonzero when a bucket overflowed;
+    row_bad int32 (B,) the rows holding dropped pieces, which the host
+    re-encodes."""
+    if route not in (None, 1, 2, 3):
+        raise ValueError(f"route must be None, 1, 2 or 3, got {route!r}")
     if not 1 <= fb_len_limit <= P_LANES:
         raise ValueError(f"fb_len_limit must be in 1..{P_LANES}")
     B, R = byts.shape
     N = B * R
     NP = np_cap if np_cap is not None else max(64, N // 16)
+    if route is None:
+        return _flat_encode(byts, lengths, tables, NP, fb_len_limit, clock)
     return _compact_encode(byts, lengths, tables, NP, route, fb_len_limit,
                            clock)
+
+
+def _flat_stage1(byts, lengths, n_words, wsize, wseed, clock):
+    """The flat path's stage 1: the branch chain over the whole buffer,
+    then (plen, slot, ws...) at byte granularity as int32 (B, R) planes
+    ((plen,) alone for n_words 0)."""
+    dev = byts.device
+    is_ascii = bool((byts < 0x80).all())
+    if is_ascii:
+        is_w = (byts == 32) | ((byts >= 9) & (byts <= 13))
+        is_n = (byts >= 48) & (byts <= 57)
+        ws_run2 = (is_w[:, 1:] & is_w[:, :-1]).any()
+        dig_run4 = (is_n[:, 3:] & is_n[:, 2:-1] & is_n[:, 1:-2]
+                    & is_n[:, :-3]).any()
+        if not bool(ws_run2 | dig_run4):
+            _mark(clock, "branch", dev)
+            return stage1_fused(byts, lengths, n_words, wsize, wseed)
+    if is_ascii and byts.shape[1] <= GENERAL_MAX_ROW:
+        bnd = ascii_boundaries(byts, lengths, "general")
+    else:
+        # UTF-8, or ASCII rows beyond the general rules' row bound: the
+        # byte-level rules give the same flags on ASCII, for any length
+        bnd = byte_boundaries(byts, lengths)
+    _mark(clock, "branch", dev)
+    plen, slot, ws = stage1_planes(byts, lengths, bnd, n_words, wsize, wseed)
+    planes = (plen, slot, *ws) if n_words else (plen,)
+    return tuple(to_i32(x) for x in planes)
+
+
+def _flat_encode(byts, lengths, tables, NP: int, fb_len_limit: int, clock):
+    """The unrouted flat path (the JAX package's ``packed_encode_impl``
+    with ``route=None``)."""
+    B, R = byts.shape
+    N = B * R
+    dev = byts.device
+    # bucket rows pack flat byte positions shifted by 2 bits
+    if N >= (1 << 29):
+        raise ValueError(f"buffer of {N} bytes exceeds 2^29")
+    i64 = torch.int64
+    idx = torch.arange(N, dtype=i64, device=dev)
+    valid = row_valid(byts, lengths).reshape(N)
+    byte_rank = torch.where(valid, byts.reshape(N).to(i64), -1)
+
+    if tables.wseed:
+        n_words, maxl = tables.n_words, tables.max_word_len
+        wsize = tables.word_rows.shape[0]
+    else:
+        n_words, maxl, wsize = 0, 0, 1
+
+    s1 = [x.reshape(N) for x in _flat_stage1(byts, lengths, n_words, wsize,
+                                               tables.wseed, clock)]
+    plen = s1[0].to(i64)
+    is_pstart = plen > 0
+    multi = plen >= 2
+    _mark(clock, "stage1", dev)
+
+    # --- word-exact whole-piece probe at every byte position ---
+    if n_words:
+        slot, ws = s1[1], s1[2:]
+        row = tables.word_rows[slot.to(i64)]                    # (N, W)
+        meta = row[:, n_words].to(i64)
+        ok = (meta >= 0) & ((meta & 31) == plen)
+        for k in range(n_words):
+            ok = ok & (row[:, k] == ws[k])
+        hit_start = ok & multi & (plen <= maxl)
+        found = torch.where(hit_start, meta >> 5, -1)
+    else:
+        hit_start = torch.zeros_like(multi)
+        found = torch.full_like(plen, -1)
+    single = is_pstart & (plen == 1)
+    # singles and whole-piece hits emit at their start byte; slot N drops
+    tok = torch.cat([torch.where(single, byte_rank, found).to(torch.int32),
+                     torch.full((1,), -1, dtype=torch.int32, device=dev)])
+
+    # --- bucket build: misses of 2-4 / 5-8 / > 8 bytes to the P=4 / P=8 /
+    # P=32 buckets, disjoint row ranges of one table ---
+    mp_mark = multi & ~hit_start
+    tiny = mp_mark & (plen <= 4)
+    short = mp_mark & (plen > 4) & (plen <= P_SHORT)
+    long_ = mp_mark & (plen > P_SHORT)
+
+    def ids(m):
+        return torch.cumsum(m.to(i64), 0) - 1
+
+    id_t, id_s, id_l = ids(tiny), ids(short), ids(long_)
+    NP4 = NP
+    NP8 = max(64, NP // 2)
+    NP32 = max(64, NP // 8)
+    NPT = NP4 + NP8 + NP32
+    fb_piece = long_ & (plen > fb_len_limit)
+    n_t, n_s, n_l, n_lm = torch.stack([
+        tiny.sum(), short.sum(), long_.sum(),
+        (long_ & (plen <= fb_len_limit)).sum()]).tolist()
+    overflow = int(n_t > NP4 or n_s > NP8 or n_l > NP32)
+
+    tgt_row = torch.where(
+        tiny & (id_t < NP4), id_t, torch.where(
+            short & (id_s < NP8), NP4 + id_s, torch.where(
+                long_ & (id_l < NP32), NP4 + NP8 + id_l, NPT)))
+    # (start, fb, live) in one word: plen is re-read from the flat plen
+    # array at the start (plen at a piece start IS its length)
+    word = (idx << 2) | (fb_piece.to(i64) << 1) | 1
+    w = torch.zeros(NPT + 1, dtype=i64, device=dev)
+    w[tgt_row] = word
+    w = w[:NPT]
+    live = (w & 1) == 1
+    start_r = w >> 2
+    fb_r = live & ((w & 2) != 0)
+    plen_r = torch.where(live, plen[start_r.clamp(0, N - 1)], 0)
+    nseg0 = torch.where(fb_r, 0, plen_r)
+    fb_start = torch.where(fb_r, start_r, -1).to(torch.int32)
+    fb_len = torch.where(fb_r, plen_r, 0).to(torch.int32)
+    start0 = torch.where(live & ~fb_r, start_r, -1)
+    dropped = mp_mark & (tgt_row == NPT)
+    row_bad = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+    row_bad[torch.where(dropped, idx // R, B)] = 1
+    row_bad = row_bad[:B]
+    _mark(clock, "probe_emit", dev)
+
+    def rows_fn(lo, rows):
+        return nseg0[lo:lo + rows], start0[lo:lo + rows]
+
+    _merge_buckets(tok, byte_rank, rows_fn, (n_t, n_s, n_l, n_lm),
+                   (NP4, NP8, NP32), tables, N)
+    tok = tok[:N]
+    n_out = (tok >= 0).sum()
+    _mark(clock, "merge", dev)
+    return tok, n_out, fb_start, fb_len, overflow, row_bad
 
 
 def _compact_encode(byts, lengths, tables, NP: int, route: int,
@@ -252,20 +395,8 @@ def _compact_encode(byts, lengths, tables, NP: int, route: int,
         return (torch.where(keep, g[rows:], 0),
                 torch.where(keep, g[:rows], -1))
 
-    if n_t:
-        _merge_tier(tok, byte_rank, rows_fn, 0, _tier(
-            n_t, [64, max(64, NP4 // 16), max(64, NP4 // 4), NP4]), 4,
-            tables, N)
-    if n_s:
-        _merge_tier(tok, byte_rank, rows_fn, NP4, _tier(
-            n_s, [64, max(64, NP8 // 16), max(64, NP8 // 4), NP8]),
-            P_SHORT, tables, N)
-    if n_lm:
-        # the tier covers every row the bucket fills: fb rows share the
-        # bucket's numbering with the mergeable ones
-        _merge_tier(tok, byte_rank, rows_fn, NP4 + NP8, _tier(
-            min(n_l, NP32), [64, max(64, NP32 // 4), NP32]), P_LANES,
-            tables, N)
+    _merge_buckets(tok, byte_rank, rows_fn, (n_t, n_s, n_l, n_lm),
+                   (NP4, NP8, NP32), tables, N)
     tok = tok[:N]
     n_out = (tok >= 0).sum()
     _mark(clock, "merge", dev)
@@ -321,6 +452,29 @@ def _p23_tier(tok, wv, byte_rank, tables, N):
     dst = torch.cat([posr, posr + 1, posr + 2])
     ok = (src >= 0) & (torch.cat([posr, posr, posr]) >= 0)
     tok[torch.where(ok, dst, N)] = src.to(torch.int32)
+
+
+def _merge_buckets(tok, byte_rank, rows_fn, counts, caps, tables, N):
+    """Merge the P=4, P=8 and P=32 buckets (rows [0, NP4), [NP4, NP4+NP8)
+    and [NP4+NP8, NP4+NP8+NP32)), each in the smallest tier holding its
+    count.  counts = (n_t, n_s, n_l, n_lm): the rows each bucket fills, and
+    n_lm the long bucket's mergeable ones; caps = (NP4, NP8, NP32)."""
+    n_t, n_s, n_l, n_lm = counts
+    NP4, NP8, NP32 = caps
+    if n_t:
+        _merge_tier(tok, byte_rank, rows_fn, 0, _tier(
+            n_t, [64, max(64, NP4 // 16), max(64, NP4 // 4), NP4]), 4,
+            tables, N)
+    if n_s:
+        _merge_tier(tok, byte_rank, rows_fn, NP4, _tier(
+            n_s, [64, max(64, NP8 // 16), max(64, NP8 // 4), NP8]),
+            P_SHORT, tables, N)
+    if n_lm:
+        # the tier covers every row the bucket fills: fb rows share the
+        # bucket's numbering with the mergeable ones (ROADMAP.md, queue 3)
+        _merge_tier(tok, byte_rank, rows_fn, NP4 + NP8, _tier(
+            min(n_l, NP32), [64, max(64, NP32 // 4), NP32]), P_LANES,
+            tables, N)
 
 
 def _merge_tier(tok, byte_rank, rows_fn, lo, rows, P, tables, N):
@@ -485,9 +639,11 @@ class PackedEncoder:
                     result[int(i)] = sub_out[j]
         return result
 
-    def _encode_buffer(self, buf, lengths, n_docs: int, route: int, clock):
-        """Run the pipeline on one (Bg, R) buffer with a static route;
-        splice fb spans and re-encode overflow rows on the host."""
+    def _encode_buffer(self, buf, lengths, n_docs: int, route: int | None,
+                       clock=None):
+        """Run the pipeline on one (Bg, R) buffer with a static route, or
+        on the unrouted flat path for ``route`` None; splice fb spans and
+        re-encode overflow rows on the host."""
         from ..oracle import encode_ranks
 
         Bg = buf.shape[0]

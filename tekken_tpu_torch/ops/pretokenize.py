@@ -35,6 +35,8 @@ _LETTER, _NUMBER, _WS = 1, 2, 4
 _F_S, _F_T, _F_R, _F_E, _F_V, _F_M, _F_L, _F_D = range(1, 9)
 
 BIG = 1 << 30
+# the longest row the general ASCII rules take (the JAX package's bound)
+GENERAL_MAX_ROW = 8192
 
 
 @functools.lru_cache(maxsize=1)
@@ -178,9 +180,9 @@ def _char_boundaries_general(cp, is_valid, pk):
     package's ``_char_boundaries_general``, including its bound on the row
     length."""
     n = cp.shape[-1]
-    if n > 8192:
-        raise ValueError(f"general boundary rules take rows of <= 8192 "
-                         f"bytes, got {n}")
+    if n > GENERAL_MAX_ROW:
+        raise ValueError(f"general boundary rules take rows of <= "
+                         f"{GENERAL_MAX_ROW} bytes, got {n}")
     idx = _iota(cp)
     (fold, is_l, is_n, is_w, is_p, is_nl, is_space, is_apos, change,
      change_next) = _classes(cp, is_valid, pk)

@@ -20,9 +20,14 @@ import tekken_tpu_torch as tt
 from tekken_tpu_torch import _build
 from tekken_tpu_torch.oracle import encode_ranks
 from tekken_tpu_torch.ops.bpe import INF, merge_rows_compact
+from tekken_tpu_torch.ops.decode import (DeviceDecoder, decode_bytes_compact,
+                                         decode_bytes_compact_reference)
 from tekken_tpu_torch.ops.merge import merge_rows_compact_fused
 from tekken_tpu_torch.ops.pretokenize import byte_boundaries
-from tekken_tpu_torch.ops.stage1 import stage1_compact, stage1_compact_reference
+from tekken_tpu_torch.ops.stage1 import (stage1_compact,
+                                         stage1_compact_reference,
+                                         stage1_fused, stage1_fused_reference)
+from tekken_tpu_torch.special_tokens import SpecialTokenPolicy
 
 pytestmark = pytest.mark.cuda
 
@@ -97,6 +102,123 @@ def test_stage1_kernel_matches_plain(dev, rules, R, n_words):
     assert _build.LAUNCHES["stage1_compact"] == before + 1
     for k, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(g, w), (k, torch.nonzero(g != w)[:5].tolist())
+
+
+@pytest.mark.parametrize("n_words", [0, 3, 6])
+@pytest.mark.parametrize("R", [300, 5000, 1 << 16])
+def test_stage1_fused_kernel_matches_plain(dev, R, n_words):
+    """Every plane at every lane, on simple-ASCII rows: empty rows, a row
+    that is one piece, lengths that are no multiple of the tile."""
+    rng = random.Random(R + n_words)
+    n = 40 if R < 1 << 16 else 4
+    texts = _texts(rng, "simple", n, R) + ["", "a" * R, "b" * (R - 1),
+                                           "x'll 's" * 3]
+    buf, lens = _rows(texts, R)
+    b = torch.from_numpy(buf).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    wsize, wseed = (1 << 12, 0x9E3779B9) if n_words else (1, 0)
+    want = stage1_fused_reference(b, ln, n_words, wsize, wseed)
+    before = _build.LAUNCHES["stage1_fused"]
+    got = stage1_fused(b, ln, n_words, wsize, wseed)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stage1_fused"] == before + 1
+    assert len(got) == len(want) == (2 + n_words if n_words else 1)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), (k, torch.nonzero(g != w)[:5].tolist())
+    assert int(got[0][len(texts) - 3, 0]) == R          # the one-piece row
+
+
+@pytest.mark.parametrize("n_tokens", [65536, 65535, 1, 0])
+def test_decode_kernel_matches_plain(dev, tok, n_tokens):
+    """All out_cap bytes, random ranks over the whole vocabulary."""
+    dec = DeviceDecoder(tok[0], device=dev)
+    rng = np.random.default_rng(n_tokens)
+    ranks = rng.integers(0, dec._n_ranks, 65536, dtype=np.int32)
+    t = torch.from_numpy(ranks).to(dev)
+    out_cap = dec.out_cap_for(ranks[:n_tokens])
+    want, wt = decode_bytes_compact_reference(t, n_tokens, dec._bytes32,
+                                              dec._lentab, out_cap)
+    before = _build.LAUNCHES["decode_store"]
+    got, gt = decode_bytes_compact(t, n_tokens, dec._bytes32, dec._lentab,
+                                   out_cap)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_store"] == before + 1
+    assert int(gt) == int(wt)
+    assert torch.equal(got, want), torch.nonzero(got != want)[:5].tolist()
+
+
+def test_empty_inputs_launch_nothing(dev, tok):
+    """Empty inputs launch no kernel and count no launch; the outputs equal
+    the plain versions' (a zero-width row holds no piece)."""
+    b = torch.zeros((4, 0), dtype=torch.uint8, device=dev)
+    ln = torch.zeros(4, dtype=torch.int32, device=dev)
+    wsize, wseed = 1 << 12, 0x9E3779B9
+    dec = DeviceDecoder(tok[0], device=dev)
+    t = torch.zeros(256, dtype=torch.int32, device=dev)
+    e = torch.zeros((0, 4), dtype=torch.int32, device=dev)
+    n = torch.zeros(0, dtype=torch.int32, device=dev)
+    tabs = tok[0].device_tables(dev)
+    _build.reset_launches()
+    pairs = [
+        (stage1_compact(b, ln, 3, wsize, wseed),
+         stage1_compact_reference(b, ln, 3, wsize, wseed)),
+        (stage1_fused(b, ln, 3, wsize, wseed),
+         stage1_fused_reference(b, ln, 3, wsize, wseed)),
+        (decode_bytes_compact(t, 0, dec._bytes32, dec._lentab, 0),
+         decode_bytes_compact_reference(t, 0, dec._bytes32, dec._lentab, 0)),
+        (merge_rows_compact_fused(e, e, n, tabs.packed, tabs.seed1,
+                                  tabs.seed2),
+         merge_rows_compact(e, e, n, tabs.packed, tabs.seed1, tabs.seed2)),
+    ]
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
+    for got, want in pairs:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_decode_batch_on_the_card(dev, tok):
+    t, words = tok
+    rng = random.Random(4)
+    texts = [" ".join(rng.choice(words) for _ in range(rng.randint(0, 300)))
+             for _ in range(40)] + ["café 中文 \U0001f600", ""]
+    ids = [[1] + t.encode(x, False, False) + [2] for x in texts]
+    _build.reset_launches()
+    got = t.decode_batch(ids, SpecialTokenPolicy.IGNORE)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_store"] >= 1
+    assert got == texts
+    assert t.decode_batch(ids[:5], SpecialTokenPolicy.KEEP) == [
+        t.decode(x, SpecialTokenPolicy.KEEP) for x in ids[:5]]
+
+
+@pytest.mark.parametrize("kind", ["simple", "general", "utf8"])
+def test_flat_encode_on_the_card(dev, tok, kind):
+    """The unrouted flat path on the card equals the oracle; the simple
+    branch launches the fused stage-1 kernel."""
+    t, words = tok
+    rng = random.Random(9)
+    texts = []
+    for i in range(64):
+        ws = [rng.choice(words) if rng.random() < 0.9 else "".join(
+            rng.choice(string.ascii_lowercase)
+            for _ in range(rng.randint(4, 14))) for _ in range(60)]
+        doc = " ".join(ws)
+        if kind == "general" and i % 8 == 1:
+            doc += "  double  12345"
+        if kind == "utf8" and i % 8 == 2:
+            doc += " café 中文 \U0001f600"
+        texts.append(doc)
+    enc = t._get_packed_encoder(texts)
+    buf, lens = enc.pack(texts)
+    _build.reset_launches()
+    got = enc._encode_buffer(buf, lens, len(texts), None)
+    torch.cuda.synchronize()
+    assert (_build.LAUNCHES["stage1_fused"] >= 1) == (kind == "simple")
+    assert _build.LAUNCHES["stage1_compact"] == 0
+    assert _build.LAUNCHES["merge_rows"] >= 1
+    for s_, g in zip(texts, got):
+        assert g == encode_ranks(s_, t.ranks), s_
 
 
 @pytest.mark.parametrize("fixed", [True, False])

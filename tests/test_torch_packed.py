@@ -206,8 +206,11 @@ def test_long_bucket_device_merge(toks, monkeypatch):
 
 
 def test_pipeline_refuses_unrouted(toks):
+    """A route outside None (the unrouted flat path, tests/test_torch_flat.py)
+    and 1-3 is refused."""
     _, port = toks
     buf, lens = _pack(["abc"], 8, 256)
-    with pytest.raises(ValueError, match="route"):
-        packed_encode(torch.from_numpy(buf), torch.from_numpy(lens),
-                      port.device_tables("cpu"), None)
+    for route in (0, 4):
+        with pytest.raises(ValueError, match="route"):
+            packed_encode(torch.from_numpy(buf), torch.from_numpy(lens),
+                          port.device_tables("cpu"), route)

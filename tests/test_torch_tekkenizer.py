@@ -58,8 +58,11 @@ def test_errors_and_unported_surface(merged_tokenizer):
         port.decode([port.bos_id()], SpecialTokenPolicy.RAISE)
     with pytest.raises(tt.TokenNotFoundError):
         port.get_control_token("[NOPE]")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.decode_batch([[1]], SpecialTokenPolicy.KEEP)
+    # decode_batch raises as decode does (tests/test_torch_decode.py)
+    with pytest.raises(tt.SpecialTokenPolicyError):
+        port.decode_batch([[port.bos_id()]], SpecialTokenPolicy.RAISE)
+    with pytest.raises(tt.TokenizersError, match="Invalid token id"):
+        port.decode_batch([[port.vocab_size() + 1]], SpecialTokenPolicy.KEEP)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.encode_audio(None)
     # an over-size batch is refused with its size, never served elsewhere
