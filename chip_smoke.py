@@ -37,7 +37,12 @@ Phases:
    and IGNORE.  Each path zeroes the launch counts just before it and
    reads them just after; MB/s is the median of 5 calls after a warm-up;
 5. the kernels at the paths' own inputs: time, plain time, bound, and one
-   JSON line ``{"kernels": [...]}`` for all four;
+   JSON line ``{"kernels": [...]}`` for all four.  stage1_compact is timed
+   at each of its launches on the routed encode path (one ``[kernel]``
+   line each); its ``ms``, ``plain_ms`` and ``bound_ms`` in the JSON line
+   are the sums over those launches.  The decode store's ``ms`` is a call
+   through ``decode_bytes_compact``; its line also gives the launch alone
+   and the kernel's device time from a profiler trace;
 6. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a GPU the script exits
@@ -208,6 +213,38 @@ def route3_batch(words, rng, B, R):
     return out
 
 
+def configuration():
+    """The full-width configuration from seed 1234: (corpus words, the
+    tokenizer on the card)."""
+    rng = random.Random(1234)
+    words = ["".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
+                     for _ in range(rng.randint(2, 11)))
+             for _ in range(N_WORDS)]
+    vocab = build_bench_vocab(words, INNER_VOCAB)
+    return words, tt.Tekkenizer(
+        vocab=vocab, special_tokens=get_deprecated_special_tokens(),
+        pattern=".*", vocab_size=len(vocab) + N_SPECIAL,
+        num_special_tokens=N_SPECIAL, version=tt.TokenizerVersion.V7,
+        device="cuda")
+
+
+def traffic(words, ranks):
+    """The main path's batches from seed 99, by name."""
+    rng = random.Random(99)
+    batches = {
+        "route1_bench": route1_batch(words, rng, ranks, B_MAIN, ROW),
+        "route2": route2_batch(words, rng, B_SIDE, ROW),
+        "route3": route3_batch(words, rng, B_SIDE, ROW),
+    }
+    mixed = route1_batch(words, rng, ranks, B_MAIN, ROW)
+    n_utf8 = max(1, B_MAIN // 100)
+    utf8 = route3_batch(words, rng, n_utf8, ROW)
+    for k, i in enumerate(rng.sample(range(B_MAIN), n_utf8)):
+        mixed[i] = utf8[k]
+    batches["mixed_1pct_utf8"] = mixed
+    return batches
+
+
 # --------------------------------------------------------------------- #
 # measurement helpers
 # --------------------------------------------------------------------- #
@@ -225,6 +262,25 @@ def cuda_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, kernel, reps=20):
+    """Mean device time per fn() call of the CUDA kernels whose name holds
+    ``kernel``, from a torch.profiler trace of reps calls after a
+    warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+             for e in prof.key_averages() if kernel in e.key)
+    if not us:
+        raise AssertionError(f"the profiler saw no {kernel} kernel")
+    return us / reps / 1e3
 
 
 def max_abs_err(got, want):
@@ -353,37 +409,16 @@ def main():
 
     # ---- 2. full-width configuration ----
     t0 = time.perf_counter()
-    rng = random.Random(1234)
-    words = ["".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
-                     for _ in range(rng.randint(2, 11)))
-             for _ in range(N_WORDS)]
-    vocab = build_bench_vocab(words, INNER_VOCAB)
-    tok = tt.Tekkenizer(vocab=vocab,
-                        special_tokens=get_deprecated_special_tokens(),
-                        pattern=".*", vocab_size=len(vocab) + N_SPECIAL,
-                        num_special_tokens=N_SPECIAL,
-                        version=tt.TokenizerVersion.V7, device="cuda")
+    words, tok = configuration()
+    ranks = tok.ranks
     t1 = time.perf_counter()
     tabs = tok.device_tables()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    log(f"[config] vocab {len(vocab)} inner ranks + {N_SPECIAL} specials "
+    log(f"[config] vocab {len(ranks)} inner ranks + {N_SPECIAL} specials "
         f"in {t1 - t0:.1f} s; device tables in {t2 - t1:.1f} s: cuckoo "
         f"{tuple(tabs.packed.shape)}, word map {tuple(tabs.word_rows.shape)}")
-    ranks = tok.ranks
-
-    rng = random.Random(99)
-    batches = {
-        "route1_bench": route1_batch(words, rng, ranks, B_MAIN, ROW),
-        "route2": route2_batch(words, rng, B_SIDE, ROW),
-        "route3": route3_batch(words, rng, B_SIDE, ROW),
-    }
-    mixed = route1_batch(words, rng, ranks, B_MAIN, ROW)
-    n_utf8 = max(1, B_MAIN // 100)
-    utf8 = route3_batch(words, rng, n_utf8, ROW)
-    for k, i in enumerate(rng.sample(range(B_MAIN), n_utf8)):
-        mixed[i] = utf8[k]
-    batches["mixed_1pct_utf8"] = mixed
+    batches = traffic(words, ranks)
     log(f"[config] traffic built; total {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernels against their plain versions on the card ----
@@ -632,19 +667,35 @@ def main():
         f"{out_bytes / d_e2e / 1e6:.2f} MB/s")
 
     # ---- 5. the kernels at the main path's own inputs ----
-    s1_calls, m_calls = captured["route1_bench"]
-    (b, ln, nw, ws_, wseed_), kw = s1_calls[0][0], s1_calls[0][1]
-    rules = kw.get("rules", "simple")
-    got = stage1_compact(b, ln, nw, ws_, wseed_, **kw)
-    want = stage1_compact_reference(b, ln, nw, ws_, wseed_, **kw)
-    err1 = check_equal("stage1 main path", got, want)
-    ms1 = cuda_ms(lambda: stage1_compact(b, ln, nw, ws_, wseed_, **kw), 20)
-    plain1 = cuda_ms(lambda: stage1_compact_reference(b, ln, nw, ws_, wseed_,
-                                                      **kw), 3)
-    bound1, by1 = stage1_bound_ms(b, nw, rules)
-    log(f"[kernel] stage1_compact at {tuple(b.shape)} rules={rules}: "
-        f"{ms1:.4f} ms, plain {plain1:.3f} ms, bound {bound1:.4f} ms ({by1})")
+    # stage 1 at every launch of the routed encode path, each with its bound
+    ms1 = plain1 = bound1 = 0.0
+    err1 = n1 = 0
+    by1 = "bytes"
+    for name in batches:
+        for k, ((b, ln, nw, ws_, wseed_), kw) in enumerate(captured[name][0]):
+            rules = kw.get("rules", "simple")
+            got = stage1_compact(b, ln, nw, ws_, wseed_, **kw)
+            want = stage1_compact_reference(b, ln, nw, ws_, wseed_, **kw)
+            err1 = max(err1, check_equal(f"stage1 {name} call {k}", got,
+                                         want))
+            ms = cuda_ms(lambda: stage1_compact(b, ln, nw, ws_, wseed_, **kw),
+                         20)
+            pm = cuda_ms(lambda: stage1_compact_reference(b, ln, nw, ws_,
+                                                          wseed_, **kw), 3)
+            bnd, by = stage1_bound_ms(b, nw, rules)
+            ms1, plain1, bound1 = ms1 + ms, plain1 + pm, bound1 + bnd
+            n1 += 1
+            by1 = by if by == "operations" else by1
+            log(f"[kernel] stage1_compact {name} call {k} at {tuple(b.shape)} "
+                f"rules={rules}: {ms:.4f} ms, plain {pm:.3f} ms, bound "
+                f"{bnd:.4f} ms ({by}), {int(got[-1].sum())} pieces")
+    if n1 != launches["stage1_compact"]:
+        raise AssertionError(f"{n1} captured stage-1 calls for "
+                             f"{launches['stage1_compact']} launches")
+    log(f"[kernel] stage1_compact over its {n1} launches: {ms1:.4f} ms, "
+        f"plain {plain1:.3f} ms, bound {bound1:.4f} ms")
 
+    m_calls = captured["route1_bench"][1]
     if not m_calls:
         raise AssertionError("the route-1 batch launched no merge")
     tot_ms = tot_plain = tot_bound = 0.0
@@ -692,13 +743,17 @@ def main():
         bnd, by3 = decode_bound_ms(n_tok, int(got[1]), cap_)
         bound3 += bnd
     k3 = len(dec_calls)
-    # the launch alone, without the wrapper's torch gather and cumsum
+    # the launch alone, without the wrapper's checks, and the kernel's
+    # device time
     alone3 = sum(cuda_ms(lambda: decode_mod._decode_store(*a), 20)
                  for a, _ in store_calls) / len(store_calls)
+    dev3 = sum(device_ms(lambda: decode_mod._decode_store(*a), "decode_store")
+               for a, _ in store_calls) / len(store_calls)
     log(f"[kernel] decode_store over {k3} chunks (T={dec_calls[0][0][0].shape[0]},"
         f" sw4={dec_calls[0][0][2].shape[1]}): {tot3 / k3:.4f} ms a call of "
-        f"the wrapper, {alone3:.4f} ms the launch alone, plain "
-        f"{plain3 / k3:.3f} ms, bound {bound3 / k3:.5f} ms ({by3})")
+        f"the wrapper, {alone3:.4f} ms the launch alone, {dev3:.4f} ms of "
+        f"device time, plain {plain3 / k3:.3f} ms, bound {bound3 / k3:.5f} ms "
+        f"({by3})")
 
     line = {"kernels": [
         {"name": "stage1_compact", "route": "cuda",

@@ -2,10 +2,9 @@
 
 The port of the JAX package ``tekken_tpu``, which stays beside it as the
 reference.  This package imports torch and never jax, and nothing of the
-JAX package.  Its batched encode runs the packed pipeline on the GPU with
-two kernels written by hand for Hopper (``csrc/``, built with nvcc at
-first use); on CPU tensors the same functions run their plain PyTorch
-versions.
+JAX package.  Its batched encode and decode run on the GPU with kernels
+written by hand for Hopper (``csrc/``, built with nvcc at first use); on
+CPU tensors the same functions run their plain PyTorch versions.
 """
 
 from .config import ModelData, TekkenConfig, TokenInfo, TokenizerVersion

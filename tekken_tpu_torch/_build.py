@@ -58,7 +58,7 @@ KERNELS = {
         "tk_stage1_fused_error"),
     "decode_store": (
         "decode_store.cu", "tk_decode_store",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
+        [_P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _U, _P],
         "tk_decode_error"),
 }
 
@@ -69,7 +69,8 @@ LAUNCHES = {name: 0 for name in KERNELS}
 # nothing (CUDA error codes are >= 0)
 NO_LAUNCH = -1
 
-# name -> nvcc's report (seconds, ptxas register/shared-memory lines)
+# name -> nvcc's report (seconds, ptxas register/shared-memory/spill
+# lines)
 BUILD_LOG: dict[str, dict] = {}
 
 _libs: dict[str, tuple] = {}
@@ -144,7 +145,8 @@ def build(names=None) -> dict[str, dict]:
             continue
         os.replace(tmp, out)
         ptxas = "\n".join(ln for ln in log.splitlines()
-                          if "registers" in ln or "Compiling" in ln)
+                          if "registers" in ln or "Compiling" in ln
+                          or "spill" in ln)
         BUILD_LOG[name] = {"seconds": secs, "cached": False, "ptxas": ptxas}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

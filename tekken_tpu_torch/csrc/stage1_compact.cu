@@ -13,36 +13,64 @@
 //
 // What bounds it on this card: bytes.  It reads 1 byte per input lane
 // (2 with external flags) and writes (3 + nw) * 4 bytes per lane, so
-// at B=4096, R=2048, nw=3 it moves ~210 MB: ~63 us at 3.35 TB/s.  The
+// at B=4096, R=2048, nw=3 it moves ~210 MB: ~63 us at 3.35 TB/s.  Four
+// fifths of the writes are the -1 fill past each row's count.  The
 // boundary rules are a few dozen integer operations per byte.
 //
 // Design.  The TPU kernel used a binary-gap shift network and a
-// log-doubling min because Mosaic has no scan and no scatter; on CUDA
-// one CTA walks one row in tiles of kThreads lanes:
-//   1. boundary flags: the simple rules from a halo of neighbour bytes
-//      (i-4 .. i+2); the general rules from row-level scans computed once
-//      per row into shared memory (rows <= 8192 bytes, the bound the
-//      rules carry); or the external flags read from the input;
-//   2. a block-wide exclusive scan of the tile's start flags gives each
-//      piece its compact id, and the starts are scattered into shared
-//      memory by id, so thread k writes record k: consecutive threads
-//      write consecutive lanes (coalesced stores);
-//   3. a piece's length is the distance to the next start; the last
-//      piece of a tile stays pending until a later tile (or the row end)
-//      supplies its end, so rows of any length up to 2^21 work;
-//   4. lanes cnt..R-1 of every plane are filled with -1.
-// The hashes are uint32 arithmetic (the TPU kernel emulated it in int32
-// with logical shifts).
+// log-doubling min because Mosaic has no scan and no scatter.  Here a CTA
+// of 512 threads walks a row in tiles of 2048 lanes, so a row of the
+// bench's width is one tile; each thread owns 4 consecutive lanes.  The
+// grid is persistent (two CTAs an SM): a CTA takes rows blockIdx.x,
+// + gridDim.x, ... and loads the first window of its next row while it
+// works on this one.  Per tile:
+//   1. the tile's bytes, 16 before it and 32 past it, are staged once in
+//      shared memory with 16-byte loads (bytes at or past the row's
+//      length read as 0);
+//   2. boundary flags: the simple rules from the class words of the
+//      thread's lanes and the 4 before them, looked up once into
+//      registers from a 256-entry table in shared memory; the general
+//      rules from row-level scans computed once per row into shared
+//      memory, each thread scanning 4 lanes and one block scan a 2048-lane
+//      chunk carrying the rest (rows <= 8192 bytes, the bound the rules
+//      carry); or the external flags, 4 a thread in one load;
+//   3. one block scan of the threads' start counts numbers the tile's
+//      pieces, and each thread writes the lanes of its starts into a list
+//      in shared memory, so a piece's length is the next entry less its
+//      own;
+//   4. the finished records are stored one lane a thread (a warp's store
+//      is 128 contiguous bytes of a plane), their content dwords read from
+//      the staged bytes; at the row end the -1 fill to R, four fifths of
+//      the bytes written, follows as int4 stores from the first 16-byte
+//      boundary on.  A piece that runs past the tile stays pending; its
+//      dwords are taken from the staged bytes before the next tile
+//      replaces them, so rows of any length up to 2^21 work.
+// Rows whose bytes, flags or planes are not 16-byte aligned take the same
+// steps with byte loads and int32 stores.  The hashes are uint32
+// arithmetic (the TPU kernel emulated it in int32 with logical shifts).
 
 #include "stage1_rules.cuh"
 
 namespace {
 
 constexpr int kGeneralMaxRow = 8192;
+constexpr int kLanes = 4;                       // lanes a thread owns
+constexpr int kTile = kThreads * kLanes;        // 2048 lanes a tile
+constexpr int kHead = 16;                       // staged bytes before it
+constexpr int kWin = kHead + kTile + 32;        // staged bytes (131 x 16)
+constexpr int kMaxNw = 6;
+constexpr int kPlanes = 3 + kMaxNw;
 
 enum Rules { kSimple = 0, kGeneral = 1, kExternal = 2 };
 
-// Class words and scans held in shared memory (general rules).
+// The run class bits of a class word: exactly one of kL, kN, kW, kP for
+// a valid lane and none for an invalid one, so two lanes are in the same
+// run class (group) exactly when these bits are equal.
+__device__ __forceinline__ bool other_class(int a, int b) {
+  return ((a ^ b) & (kL | kN | kW | kP)) != 0;
+}
+
+// Class words held in shared memory (general rules).
 struct SharedRow {
   const int* inf;
   int R;
@@ -50,11 +78,28 @@ struct SharedRow {
   __device__ bool change(int j) const {
     if (j < 0) return false;
     if (j >= R) return true;
-    return j == 0 || group(inf[j]) != group(inf[j - 1]);
+    return j == 0 || other_class(inf[j], inf[j - 1]);
   }
   __device__ bool change_next(int j) const {
-    return j >= R - 1 || group(inf[j]) != group(inf[j + 1]);
+    return j >= R - 1 || other_class(inf[j], inf[j + 1]);
   }
+};
+
+// Class words of lanes base .. base + 7 in registers (simple rules): the
+// rules at lane i read lanes i-4 .. i, so a thread's 4 lanes need the 4
+// before them.  Indices fold to constants once the lane loop unrolls.
+struct RegRow {
+  int c[2 * kLanes];
+  int base;
+  __device__ int info(int j) const { return c[j - base]; }
+  __device__ bool change(int j) const {
+    if (j < 0) return false;
+    return j == 0 || other_class(info(j), info(j - 1));
+  }
+  __device__ bool change_next(int j) const {
+    return other_class(info(j), info(j + 1));
+  }
+  __device__ bool differ(int a, int b) const { return other_class(a, b); }
 };
 
 // general rules at a valid lane, from the per-row scans in shared memory
@@ -89,11 +134,107 @@ __device__ bool boundary_general(const SharedRow& rw, const int* S,
   return b_num || b_ls || b_lc || b_p || is_entry || b_ws_tail || b_ws_last;
 }
 
+// Block-wide exclusive scan in thread order (identity for thread 0);
+// *total gets the block aggregate.  `buf` holds kWarps ints.
+template <class Op>
+__device__ int block_exclusive(int v, int identity, Op op, int* buf,
+                               int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x = op(x, y);
+  }
+  if (lane == 31) buf[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kWarps ? buf[lane] : identity;
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w = op(w, y);
+    }
+    if (lane < kWarps) buf[lane] = w;
+  }
+  __syncthreads();
+  int ex = __shfl_up_sync(0xffffffffu, x, 1);
+  if (lane == 0) ex = identity;
+  if (warp > 0) ex = op(buf[warp - 1], ex);
+  *total = buf[kWarps - 1];
+  __syncthreads();
+  return ex;
+}
+
+// Per-row scans of the general rules, into shared memory: S[j] the last
+// run change at or before j, U[j] the last valid non-newline lane at or
+// before j, F[j] the first newline at or after j, NC[j] the first lane at
+// or after j whose successor changes run.  Each thread scans 4
+// consecutive lanes itself; one exclusive block scan a 2048-lane chunk
+// carries the threads before it (the threads after it, for F and NC,
+// whose threads take the chunk's lanes in reverse order).
+__device__ void general_scans(const SharedRow& rw, int* S, int* U, int* F,
+                              int* NC, int* buf) {
+  const int R = rw.R;
+  int cs = -1, cu = -1, tot;
+  for (int t0 = 0; t0 < R; t0 += kTile) {
+    const int j0 = t0 + kLanes * threadIdx.x;
+    int ls[kLanes], lu[kLanes], s = -1, u = -1;
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k) {
+      const int j = j0 + k;
+      if (j < R) {
+        const int info = rw.info(j);
+        if (rw.change(j)) s = j;
+        if ((info & kValid) && !(info & kNL)) u = j;
+      }
+      ls[k] = s;
+      lu[k] = u;
+    }
+    const int es = block_exclusive(s, -1, MaxOp(), buf, &tot);
+    const int ts = tot;
+    const int eu = block_exclusive(u, -1, MaxOp(), buf, &tot);
+    const int ps = es > cs ? es : cs, pu = eu > cu ? eu : cu;
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k)
+      if (j0 + k < R) {
+        S[j0 + k] = ls[k] > ps ? ls[k] : ps;
+        U[j0 + k] = lu[k] > pu ? lu[k] : pu;
+      }
+    cs = ts > cs ? ts : cs;
+    cu = tot > cu ? tot : cu;
+  }
+  int cf = kBig, cn = kBig;
+  for (int t0 = ((R - 1) / kTile) * kTile; t0 >= 0; t0 -= kTile) {
+    const int j0 = t0 + kLanes * (kThreads - 1 - threadIdx.x);
+    int lf[kLanes], lnc[kLanes], f = kBig, n = kBig;
+#pragma unroll
+    for (int k = kLanes - 1; k >= 0; --k) {
+      const int j = j0 + k;
+      if (j < R) {
+        if (rw.info(j) & kNL) f = j;
+        if (rw.change_next(j)) n = j;
+      }
+      lf[k] = f;
+      lnc[k] = n;
+    }
+    const int ef = block_exclusive(f, kBig, MinOp(), buf, &tot);
+    const int tf = tot;
+    const int en = block_exclusive(n, kBig, MinOp(), buf, &tot);
+    const int pf = ef < cf ? ef : cf, pn = en < cn ? en : cn;
+#pragma unroll
+    for (int k = 0; k < kLanes; ++k)
+      if (j0 + k < R) {
+        F[j0 + k] = lf[k] < pf ? lf[k] : pf;
+        NC[j0 + k] = lnc[k] < pn ? lnc[k] : pn;
+      }
+    cf = tf < cf ? tf : cf;
+    cn = tot < cn ? tot : cn;
+  }
+}
+
 struct Outputs {
-  int32_t* start;
-  int32_t* plen;
-  int32_t* slot;
-  int32_t* ws;      // nw planes, `plane` apart
+  int32_t* out;     // plane k at out + k * plane: start, plen, slot, ws..
   size_t plane;     // B * R
   int nw;
   int n_words;
@@ -101,140 +242,314 @@ struct Outputs {
   uint32_t wseed;
 };
 
-// write the record of piece `id` (start lane s, length L) of a row
-__device__ void write_record(const Outputs& o, const uint8_t* row,
-                             size_t row_off, int id, int s, int L) {
-  uint32_t w[6];
-  piece_dwords(row, s, L, o.nw, w);
-  const uint32_t slot =
-      o.n_words ? word_slot(w[0], w[1], w[2], L, o.wseed, o.size_mask) : 0;
-  const size_t at = row_off + id;
-  o.start[at] = s;
-  o.plen[at] = L;
-  o.slot[at] = static_cast<int32_t>(slot);
-  for (int j = 0; j < o.nw; ++j)
-    o.ws[j * o.plane + at] = static_cast<int32_t>(w[j]);
+// The records a tile finishes: record k of the row (lo <= k < n_rec)
+// starts at lanes[k - lo] and ends where lanes[k - lo + 1] starts; its raw
+// dwords come from the staged window, or from `pend` for the piece
+// pending from an earlier tile (k == lo when has_pend).
+struct Span {
+  const int* lanes;
+  const uint32_t* win;    // staged bytes, win0 the row lane of byte 0
+  int win0;
+  const uint32_t* pend;
+  bool has_pend;
+  int lo, n_rec;
+};
+
+// the nw raw (unmasked) dwords of the bytes from lane s, s inside the
+// window with 4 * kMaxNw + 4 staged bytes past it
+__device__ __forceinline__ void window_dwords(const uint32_t* win, int win0,
+                                              int s, uint32_t* w) {
+  const int q = (s - win0) >> 2, sh = ((s - win0) & 3) * 8;
+#pragma unroll
+  for (int j = 0; j < kMaxNw; ++j)
+    w[j] = __funnelshift_r(win[q + j], win[q + j + 1], sh);
 }
 
-// per-row scans of the general rules, into shared memory
-__device__ void general_scans(const SharedRow& rw, int* S, int* U, int* F,
-                              int* NC, int* buf) {
-  const int R = rw.R;
-  int cs = -1, cu = -1, tot;
-  for (int t0 = 0; t0 < R; t0 += kThreads) {
-    const int j = t0 + threadIdx.x;
-    const bool in = j < R;
-    const int info = rw.info(j);
-    const int vs = (in && rw.change(j)) ? j : -1;
-    const int vu = (in && (info & kValid) && !(info & kNL)) ? j : -1;
-    const int s = block_scan(vs, -1, MaxOp(), buf, &tot);
-    const int ts = tot;
-    const int u = block_scan(vu, -1, MaxOp(), buf, &tot);
-    if (in) {
-      S[j] = s > cs ? s : cs;
-      U[j] = u > cu ? u : cu;
-    }
-    cs = ts > cs ? ts : cs;
-    cu = tot > cu ? tot : cu;
+// every plane's value of record k (lo <= k < n_rec)
+__device__ __forceinline__ void record_values(const Outputs& o,
+                                              const Span& sp, int k,
+                                              int32_t* v) {
+  const int e = k - sp.lo;
+  const int s = sp.lanes[e], L = sp.lanes[e + 1] - s;
+  uint32_t w[kMaxNw];
+  if (sp.has_pend && e == 0) {
+#pragma unroll
+    for (int j = 0; j < kMaxNw; ++j) w[j] = sp.pend[j];
+  } else {
+    window_dwords(sp.win, sp.win0, s, w);
   }
-  // reverse scans: thread k takes lane t0 + kThreads-1-k, so a scan in
-  // thread order is a suffix scan in lane order
-  int cf = kBig, cn = kBig;
-  const int last_tile = ((R - 1) / kThreads) * kThreads;
-  for (int t0 = last_tile; t0 >= 0; t0 -= kThreads) {
-    const int j = t0 + (kThreads - 1 - threadIdx.x);
-    const bool in = j < R;
-    const int info = rw.info(j);
-    const int vf = (in && (info & kNL)) ? j : kBig;
-    const int vn = (in && rw.change_next(j)) ? j : kBig;
-    const int f = block_scan(vf, kBig, MinOp(), buf, &tot);
-    const int tf = tot;
-    const int n = block_scan(vn, kBig, MinOp(), buf, &tot);
-    if (in) {
-      F[j] = f < cf ? f : cf;
-      NC[j] = n < cn ? n : cn;
-    }
-    cf = tf < cf ? tf : cf;
-    cn = tot < cn ? tot : cn;
+#pragma unroll
+  for (int j = 0; j < kMaxNw; ++j) {
+    const int rem = L - 4 * j;
+    const uint32_t m = rem >= 4 ? 0xffffffffu
+                                : (rem <= 0 ? 0u : (1u << (8 * rem)) - 1u);
+    w[j] &= m;
   }
+  v[0] = s;
+  v[1] = L;
+  v[2] = static_cast<int32_t>(
+      o.n_words ? word_slot(w[0], w[1], w[2], L, o.wseed, o.size_mask) : 0);
+#pragma unroll
+  for (int j = 0; j < kMaxNw; ++j) v[3 + j] = static_cast<int32_t>(w[j]);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// -1 in every plane at row lanes [a, b), a lane a store
+__device__ __forceinline__ void fill_lanes(const Outputs& o, size_t row_off,
+                                           int a, int b) {
+  for (int k = a + threadIdx.x; k < b; k += kThreads)
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p)
+      if (p < 3 + o.nw) o.out[p * o.plane + row_off + k] = -1;
+}
+
+// Store row lanes [lo, hi) of every plane: records one lane a thread (a
+// warp's store covers 128 contiguous bytes of a plane), then the -1 fill
+// from n_rec on.  vec: the planes are 16-byte aligned and R a multiple of
+// 4, so the fill is int4 stores from the first 4-lane boundary on.
+__device__ void store_span(const Outputs& o, const Span& sp, size_t row_off,
+                           int hi, bool vec) {
+  const int rec_hi = sp.n_rec < hi ? sp.n_rec : hi;
+  for (int k = sp.lo + threadIdx.x; k < rec_hi; k += kThreads) {
+    int32_t v[kPlanes];
+    record_values(o, sp, k, v);
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p)
+      if (p < 3 + o.nw) o.out[p * o.plane + row_off + k] = v[p];
+  }
+  const int a = rec_hi > sp.lo ? rec_hi : sp.lo;
+  if (a >= hi) return;
+  if (!vec) {
+    fill_lanes(o, row_off, a, hi);
+    return;
+  }
+  const int a4 = ((a + 3) & ~3) < hi ? ((a + 3) & ~3) : hi;
+  const int b4 = (hi & ~3) > a4 ? (hi & ~3) : a4;
+  fill_lanes(o, row_off, a, a4);
+  const int4 m1 = make_int4(-1, -1, -1, -1);
+  for (int g = (a4 >> 2) + threadIdx.x; g < (b4 >> 2); g += kThreads) {
+    int32_t* at = o.out + row_off + (g << 2);
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p)
+      if (p < 3 + o.nw) *reinterpret_cast<int4*>(at + p * o.plane) = m1;
+  }
+  fill_lanes(o, row_off, b4, hi);
+}
+
+// bytes [n, 16) of v set to 0 (0 <= n < 16)
+__device__ __forceinline__ uint4 keep_bytes(uint4 v, int n) {
+  uint32_t* c = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = n - 4 * q;
+    c[q] &= r >= 4 ? 0xffffffffu : (r <= 0 ? 0u : (1u << (8 * r)) - 1u);
+  }
+  return v;
+}
+
+// the 16 window bytes at row lane p (p a multiple of 16 when vec); bytes
+// outside [0, len) read as 0
+__device__ __forceinline__ uint4 stage16(const uint8_t* row, int p, int len,
+                                         bool vec) {
+  uint4 v = make_uint4(0, 0, 0, 0);
+  if (vec) {
+    if (p >= 0 && p < len) {
+      v = __ldg(reinterpret_cast<const uint4*>(row + p));
+      if (p + 16 > len) v = keep_bytes(v, len - p);
+    }
+  } else {
+    uint32_t c[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      if (p + b >= 0 && p + b < len)
+        c[b >> 2] |= static_cast<uint32_t>(__ldg(row + p + b))
+                     << (8 * (b & 3));
+    v = make_uint4(c[0], c[1], c[2], c[3]);
+  }
+  return v;
+}
+
+__device__ __forceinline__ int row_len(const int32_t* lengths, int r, int R) {
+  const int len = __ldg(lengths + r);
+  return len < 0 ? 0 : (len > R ? R : len);
+}
+
+template <int kRules>
+__global__ void __launch_bounds__(kThreads, 2)
 stage1_compact_kernel(const uint8_t* __restrict__ byts,
                       const uint8_t* __restrict__ flags,
-                      const int32_t* __restrict__ lengths, int R, int rules,
-                      Outputs o, int32_t* __restrict__ cnt_out) {
-  __shared__ int tstart[kThreads];
+                      const int32_t* __restrict__ lengths, int B, int R,
+                      bool vec, Outputs o, int32_t* __restrict__ cnt_out) {
+  __shared__ __align__(16) uint32_t win[kWin / 4];
+  __shared__ int lanes[kTile + 2];
   __shared__ int buf[kWarps];
+  __shared__ uint32_t pend_w[2][kMaxNw];
+  __shared__ int cls[256];       // char_info of each byte value
   extern __shared__ int dyn[];   // general rules: 5 * R ints + R flags
 
-  const int r = blockIdx.x;
-  const size_t row_off = static_cast<size_t>(r) * R;
-  const uint8_t* row = byts + row_off;
-  int len = lengths[r];
-  len = len < 0 ? 0 : (len > R ? R : len);
+  // (read first after the first tile's first barrier)
+  if (threadIdx.x < 256) cls[threadIdx.x] = char_info(threadIdx.x);
 
-  const GlobalRow grow{row, len};
-  uint8_t* gflag = nullptr;
-  if (rules == kGeneral) {
-    int* inf = dyn;
-    int* S = dyn + R;
-    int* U = dyn + 2 * R;
-    int* F = dyn + 3 * R;
-    int* NC = dyn + 4 * R;
-    gflag = reinterpret_cast<uint8_t*>(dyn + 5 * R);
-    for (int j = threadIdx.x; j < R; j += kThreads)
-      inf[j] = j < len ? char_info(__ldg(row + j)) : 0;
-    __syncthreads();
-    const SharedRow srow{inf, R};
-    general_scans(srow, S, U, F, NC, buf);
-    for (int j = threadIdx.x; j < len; j += kThreads)
-      gflag[j] = boundary_general(srow, S, U, F, NC, j) ? 1 : 0;
-    __syncthreads();
-  }
+  // A CTA walks rows blockIdx.x, + gridDim.x, ...; the first window of
+  // its next row is loaded while it works on this one.
+  const bool stager = threadIdx.x < kWin / 16;
+  int r = blockIdx.x;
+  int len = row_len(lengths, r, R);
+  uint4 ahead = stager ? stage16(byts + static_cast<size_t>(r) * R,
+                                 16 * threadIdx.x - kHead, len, vec)
+                       : make_uint4(0, 0, 0, 0);
+  for (; r < B; r += gridDim.x) {
+    const size_t row_off = static_cast<size_t>(r) * R;
+    const uint8_t* row = byts + row_off;
+    const int next = r + gridDim.x;
+    const int len_next = next < B ? row_len(lengths, next, R) : 0;
 
-  int base = 0;            // pieces written or pending before this tile
-  int pend_start = -1;     // the last piece seen, awaiting its end
-  for (int t0 = 0; t0 < len; t0 += kThreads) {
-    const int i = t0 + threadIdx.x;
-    bool bnd = false;
-    if (i < len) {
-      if (rules == kSimple)
-        bnd = boundary_simple(grow, i);
-      else if (rules == kGeneral)
-        bnd = gflag[i] != 0;
-      else
-        bnd = __ldg(flags + row_off + i) != 0;
+    const uint8_t* gflag = nullptr;
+    if (kRules == kGeneral) {
+      int* inf = dyn;
+      int* S = dyn + R;
+      int* U = dyn + 2 * R;
+      int* F = dyn + 3 * R;
+      int* NC = dyn + 4 * R;
+      uint8_t* fl = reinterpret_cast<uint8_t*>(dyn + 5 * R);
+      __syncthreads();
+      for (int j = threadIdx.x; j < R; j += kThreads)
+        inf[j] = j < len ? cls[__ldg(row + j)] : 0;
+      __syncthreads();
+      const SharedRow srow{inf, R};
+      general_scans(srow, S, U, F, NC, buf);
+      for (int j = threadIdx.x; j < len; j += kThreads)
+        fl[j] = boundary_general(srow, S, U, F, NC, j) ? 1 : 0;
+      __syncthreads();
+      gflag = fl;
     }
-    int total;
-    const int incl = block_scan(bnd ? 1 : 0, 0, AddOp(), buf, &total);
-    if (bnd) tstart[incl - 1] = i;
-    __syncthreads();
-    if (total > 0) {
-      if (pend_start >= 0 && threadIdx.x == 0)
-        write_record(o, row, row_off, base - 1, pend_start,
-                     tstart[0] - pend_start);
-      const int k = threadIdx.x;
-      if (k < total - 1)
-        write_record(o, row, row_off, base + k, tstart[k],
-                     tstart[k + 1] - tstart[k]);
-      pend_start = tstart[total - 1];
+
+    int base = 0;        // records finished or pending before this tile
+    int pend = -1;       // start lane of the piece pending from a tile
+    int pbuf = 0;        // pend_w[pbuf] holds its raw dwords
+    for (int t0 = 0;; t0 += kTile) {
+      const bool last = t0 + kTile >= len;
+      const int win0 = t0 - kHead;
+
+      // 1. stage the window; bytes outside [0, len) read as 0
+      if (stager)
+        reinterpret_cast<uint4*>(win)[threadIdx.x] =
+            t0 == 0 ? ahead
+                    : stage16(row, win0 + 16 * threadIdx.x, len, vec);
+      const int p_off = pend >= 0 ? 1 : 0;
+      if (threadIdx.x == 0 && p_off) lanes[0] = pend;
+      __syncthreads();
+      if (t0 == 0 && stager && next < B)
+        ahead = stage16(byts + static_cast<size_t>(next) * R,
+                        16 * threadIdx.x - kHead, len_next, vec);
+
+      // 2. start flags of the thread's lanes i0 .. i0+3
+      const int i0 = t0 + kLanes * threadIdx.x;
+      unsigned m = 0;
+      if (kRules == kSimple) {
+        RegRow rw;
+        rw.base = i0 - kLanes;
+        const uint32_t b0 = win[threadIdx.x + 3], b1 = win[threadIdx.x + 4];
+#pragma unroll
+        for (int e = 0; e < 2 * kLanes; ++e) {
+          const int pos = rw.base + e;
+          const int b = ((e < kLanes ? b0 : b1) >> (8 * (e & 3))) & 255;
+          rw.c[e] = (pos >= 0 && pos < len) ? cls[b] : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < kLanes; ++k)
+          if (i0 + k < len && boundary_simple(rw, i0 + k)) m |= 1u << k;
+      } else if (kRules == kGeneral) {
+#pragma unroll
+        for (int k = 0; k < kLanes; ++k)
+          if (i0 + k < len && gflag[i0 + k]) m |= 1u << k;
+      } else if (i0 < len) {
+        const uint8_t* f = flags + row_off + i0;
+        uint32_t fw;
+        if (vec) {
+          fw = __ldg(reinterpret_cast<const uint32_t*>(f));
+        } else {
+          fw = 0;
+          for (int k = 0; k < kLanes && i0 + k < R; ++k)
+            fw |= static_cast<uint32_t>(__ldg(f + k)) << (8 * k);
+        }
+#pragma unroll
+        for (int k = 0; k < kLanes; ++k)
+          if (i0 + k < len && ((fw >> (8 * k)) & 255)) m |= 1u << k;
+      }
+
+      // 3. number the tile's starts and list their lanes
+      const int n = __popc(m);
+      int total;
+      const int incl = block_scan(n, 0, AddOp(), buf, &total);
+      int at = p_off + incl - n;
+#pragma unroll
+      for (int k = 0; k < kLanes; ++k)
+        if (m >> k & 1) lanes[at++] = i0 + k;
+      if (last && threadIdx.x == 0) lanes[p_off + total] = len;
+      // the tile's last start stays pending past a tile that does not end
+      // the row: its owner keeps the raw dwords before the window changes
+      if (!last && n > 0 && incl == total)
+        window_dwords(win, win0, i0 + 31 - __clz(m), pend_w[pbuf ^ 1]);
+      __syncthreads();
+
+      // 4. store the finished records; at the row end, the fill to R
+      const Span sp{lanes, win, win0, pend_w[pbuf], p_off == 1, base - p_off,
+                    last ? base + total : base + total - 1};
+      store_span(o, sp, row_off, last ? R : sp.n_rec, vec);
       base += total;
+      if (!last && total > 0) {
+        pend = lanes[p_off + total - 1];
+        pbuf ^= 1;
+      }
+      __syncthreads();
+      if (last) break;
     }
-    __syncthreads();
+    if (threadIdx.x == 0) cnt_out[r] = base;
+    len = len_next;
   }
-  if (pend_start >= 0 && threadIdx.x == 0)
-    write_record(o, row, row_off, base - 1, pend_start, len - pend_start);
+}
 
-  const int cnt = base;
-  for (int lane = cnt + threadIdx.x; lane < R; lane += kThreads) {
-    const size_t at = row_off + lane;
-    o.start[at] = -1;
-    o.plen[at] = -1;
-    o.slot[at] = -1;
-    for (int j = 0; j < o.nw; ++j) o.ws[j * o.plane + at] = -1;
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// CTAs of the persistent grid: two an SM, the CTAs whose registers
+// __launch_bounds__ keeps room for (general rules on rows over 4096 bytes
+// fit one an SM in shared memory; the rest then wait their turn), or one a
+// row when there are fewer rows.  The SM count is read once a device.
+cudaError_t persistent_grid(int B, int* grid) {
+  static int sms_of[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int sms = dev < 64 ? sms_of[dev] : 0;
+  if (sms == 0) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) sms_of[dev] = sms;
   }
-  if (threadIdx.x == 0) cnt_out[r] = cnt;
+  *grid = B < 2 * sms ? B : 2 * sms;
+  return cudaSuccess;
+}
+
+template <int kRules>
+int launch(const uint8_t* byts, const uint8_t* flags, const int32_t* lengths,
+           int B, int R, bool vec, const Outputs& o, int32_t* cnt,
+           cudaStream_t stream) {
+  size_t dyn = 0;
+  if (kRules == kGeneral) {
+    dyn = static_cast<size_t>(R) * (5 * sizeof(int) + 1);
+    const cudaError_t e = cudaFuncSetAttribute(
+        stage1_compact_kernel<kRules>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int grid = 0;
+  const cudaError_t e = persistent_grid(B, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stage1_compact_kernel<kRules><<<grid, kThreads, dyn, stream>>>(
+      byts, flags, lengths, B, R, vec, o, cnt);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -250,23 +565,24 @@ int tk_stage1_compact(const uint8_t* byts, const uint8_t* flags,
                       unsigned int wseed, int32_t* out, int32_t* cnt,
                       void* stream) {
   if (B <= 0 || R <= 0) return -1;  // nothing to launch
-  if (rules == kGeneral && R > kGeneralMaxRow)
+  if (nw < 1 || nw > kMaxNw || (rules == kExternal && flags == nullptr) ||
+      (rules == kGeneral && R > kGeneralMaxRow))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t plane = static_cast<size_t>(B) * R;
-  Outputs o{out, out + plane, out + 2 * plane, out + 3 * plane, plane,
-            nw, n_words, size_mask, wseed};
-  size_t dyn = 0;
-  if (rules == kGeneral) {
-    dyn = static_cast<size_t>(R) * (5 * sizeof(int) + 1);
-    const cudaError_t e = cudaFuncSetAttribute(
-        stage1_compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(dyn));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const Outputs o{out, plane, nw, n_words, size_mask, wseed};
+  const bool vec = R % 16 == 0 && aligned16(byts) && aligned16(out) &&
+                   (flags == nullptr || aligned16(flags));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rules) {
+    case kSimple:
+      return launch<kSimple>(byts, flags, lengths, B, R, vec, o, cnt, s);
+    case kGeneral:
+      return launch<kGeneral>(byts, flags, lengths, B, R, vec, o, cnt, s);
+    case kExternal:
+      return launch<kExternal>(byts, flags, lengths, B, R, vec, o, cnt, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  stage1_compact_kernel<<<B, kThreads, dyn,
-                          static_cast<cudaStream_t>(stream)>>>(
-      byts, flags, lengths, R, rules, o, cnt);
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* tk_stage1_error(int code) {

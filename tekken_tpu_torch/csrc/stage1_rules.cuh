@@ -58,7 +58,7 @@ __device__ __forceinline__ int group(int info) {
 
 __device__ __forceinline__ int fold_of(int info) { return (info >> 8) & 31; }
 
-// Class words read straight from the row (simple rules).
+// Class words read straight from the row (the fused kernel's simple rules).
 struct GlobalRow {
   const uint8_t* row;
   int len;
@@ -73,6 +73,8 @@ struct GlobalRow {
   __device__ bool change_next(int j) const {
     return group(info(j)) != group(info(j + 1));
   }
+  // two class words in different run classes
+  __device__ bool differ(int a, int b) const { return group(a) != group(b); }
 };
 
 // contraction at a free length-1 apostrophe run at lane j: bit 0 consumes
@@ -109,10 +111,12 @@ __device__ void common_rules(const Row& rw, int i, int c, int m1, int m2,
   *b_p = (c & kP) && chg && !(i > 0 && (m1 & kSP));
 }
 
-// simple rules (no whitespace run > 1, no digit run > 3) at a valid lane
-__device__ bool boundary_simple(const GlobalRow& rw, int i) {
+// simple rules (no whitespace run > 1, no digit run > 3) at a valid lane;
+// Row gives the class words (GlobalRow, or the compact kernel's registers)
+template <class Row>
+__device__ bool boundary_simple(const Row& rw, int i) {
   const int c = rw.info(i), m1 = rw.info(i - 1), m2 = rw.info(i - 2);
-  const bool chg = i == 0 || group(c) != group(m1);
+  const bool chg = i == 0 || rw.differ(c, m1);
   const bool chg1 = rw.change(i - 1);
   const bool chg2 = rw.change(i - 2);
   bool b_ls, b_lc, b_p;

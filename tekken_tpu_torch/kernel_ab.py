@@ -1,0 +1,166 @@
+"""Time this checkout's CUDA kernels against another checkout's, in turns,
+on one GPU, at the inputs the main path gives them.
+
+    python3 -m tekken_tpu_torch.kernel_ab OTHER [KERNEL ...]
+
+Run it from the root of this checkout (it takes chip_smoke.py's
+configuration and traffic).  OTHER is the root of another checkout of the
+repository, for example the parent commit unpacked with ``git archive``;
+its ``tekken_tpu_torch`` is loaded under another name and builds its own
+kernels into its own ``_build/``.  KERNEL is any of stage1_compact,
+stage1_fused and decode_store (all three by default).
+
+The inputs are captured from the main path at the full Tekken V7 width:
+stage1_compact at its launches on the route-1 (simple rules), route-2
+(general) and route-3 (external flags) batches, stage1_fused at its launch
+on the unrouted flat encode of the route-1 batch, and the decode store at
+the first 2^16-token chunk of decode_batch over the route-1 batch's ids.
+Each checkout's wrapper is first held against this checkout's plain
+version on those inputs, then the two are timed other, this, this, other
+(CUDA events, the mean of 50 calls each).  Beside stage1_compact at the
+route-1 shape it times two yardsticks: ``fill_(-1)`` of its (3 + nw, B, R)
+int32 planes, the least time PyTorch takes to write them, and a copy of
+its byte buffer.  For the decode store it also gives each kernel's device
+time from a profiler trace.  Prints one line a measurement, the card's
+name and power limit, and one JSON line last.
+"""
+
+from __future__ import annotations
+
+import importlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+KERNELS = ("stage1_compact", "stage1_fused", "decode_store")
+REPS = 50
+
+
+def load_other(root: str):
+    """The other checkout's ``tekken_tpu_torch``, as a package of another
+    name (its modules import each other relatively)."""
+    pkg = os.path.join(os.path.abspath(root), "tekken_tpu_torch")
+    name = "tekken_tpu_torch_other"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv) -> None:
+    if not argv or any(k not in KERNELS for k in argv[1:]):
+        sys.exit(__doc__)
+    kernels = argv[1:] or KERNELS
+    import chip_smoke as cs   # exits where torch sees no GPU
+
+    from .ops import decode as decode_mod
+    from .ops import packed as packed_mod
+    from .ops import stage1 as stage1_mod
+    from .special_tokens import SpecialTokenPolicy
+
+    other = load_other(argv[0])
+    o_mod = {m: importlib.import_module(f"{other.__name__}.ops.{m}")
+             for m in ("stage1", "decode")}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    cs.log(f"[card] {smi}")
+
+    def turns(what, other_fn, this_fn):
+        o1, t1 = cs.cuda_ms(other_fn, REPS), cs.cuda_ms(this_fn, REPS)
+        t2, o2 = cs.cuda_ms(this_fn, REPS), cs.cuda_ms(other_fn, REPS)
+        cs.log(f"[ab] {what}: other {o1:.5f} {o2:.5f} ms, this {t1:.5f} "
+               f"{t2:.5f} ms")
+        return {"other_ms": [o1, o2], "this_ms": [t1, t2]}
+
+    words, tok = cs.configuration()
+    batches = cs.traffic(words, tok.ranks)
+    res = {"card": smi}
+
+    if "stage1_compact" in kernels:
+        rows = []
+        for name in ("route1_bench", "route2", "route3"):
+            with cs.Capture(packed_mod, "stage1_compact") as cap:
+                tok.encode_batch(batches[name])
+            (b, ln, nw, ws_, wseed_), kw = cap.calls[0]
+            rules = kw.get("rules", "simple")
+            want = stage1_mod.stage1_compact_reference(b, ln, nw, ws_,
+                                                       wseed_, **kw)
+            fns = {}
+            for who, mod in (("other", o_mod["stage1"]),
+                             ("this", stage1_mod)):
+                fn = mod.stage1_compact
+                cs.check_equal(f"{who} stage1_compact {name}",
+                               fn(b, ln, nw, ws_, wseed_, **kw), want)
+                fns[who] = (lambda fn=fn: fn(b, ln, nw, ws_, wseed_, **kw))
+            row = turns(f"stage1_compact {name} {tuple(b.shape)} {rules}",
+                        fns["other"], fns["this"])
+            row.update(batch=name, shape=list(b.shape), rules=rules,
+                       bound_ms=cs.stage1_bound_ms(b, nw, rules)[0])
+            rows.append(row)
+            if name == "route1_bench":
+                planes = torch.empty((3 + max(nw, 1),) + tuple(b.shape),
+                                     dtype=torch.int32, device=b.device)
+                dst = torch.empty_like(b)
+                res["fill_ms"] = cs.cuda_ms(lambda: planes.fill_(-1), REPS)
+                res["copy_bytes_ms"] = cs.cuda_ms(lambda: dst.copy_(b), REPS)
+                cs.log(f"[ab] yardsticks at {tuple(b.shape)}: fill_(-1) of "
+                       f"{tuple(planes.shape)} int32 {res['fill_ms']:.5f} ms, "
+                       f"copy of the bytes {res['copy_bytes_ms']:.5f} ms")
+        res["stage1_compact"] = rows
+
+    if "stage1_fused" in kernels:
+        texts = batches["route1_bench"]
+        enc = tok._get_packed_encoder(texts)
+        buf, lens = enc.pack(texts)
+        with cs.Capture(packed_mod, "stage1_fused") as cap:
+            enc._encode_buffer(buf, lens, len(texts), None)
+        args = cap.calls[0][0]
+        want = stage1_mod.stage1_fused_reference(*args)
+        fns = {}
+        for who, mod in (("other", o_mod["stage1"]), ("this", stage1_mod)):
+            fn = mod.stage1_fused
+            cs.check_equal(f"{who} stage1_fused", fn(*args), want)
+            fns[who] = (lambda fn=fn: fn(*args))
+        res["stage1_fused"] = turns(
+            f"stage1_fused {tuple(args[0].shape)} n_words={args[2]}",
+            fns["other"], fns["this"])
+
+    if "decode_store" in kernels:
+        ids = [[tok.bos_id()] + x + [tok.eos_id()]
+               for x in tok.encode_batch(batches["route1_bench"])]
+        with cs.Capture(decode_mod, "decode_bytes_compact") as cap:
+            tok.decode_batch(ids, SpecialTokenPolicy.IGNORE)
+        args = cap.calls[0][0]
+        want, total = decode_mod.decode_bytes_compact_reference(*args)
+        fns = {}
+        for who, mod in (("other", o_mod["decode"]), ("this", decode_mod)):
+            fn = mod.decode_bytes_compact
+            got, got_total = fn(*args)
+            if not torch.equal(got, want) or int(got_total) != int(total):
+                raise AssertionError(f"{who} decode store differs from the "
+                                     f"plain version")
+            fns[who] = (lambda fn=fn: fn(*args))
+        row = turns(f"decode_store T={args[0].shape[0]} n={args[1]}",
+                    fns["other"], fns["this"])
+        row.update({f"{who}_device_ms": cs.device_ms(fn, "decode_store")
+                    for who, fn in fns.items()})
+        cs.log(f"[ab] decode_store device time: other "
+               f"{row['other_device_ms']:.5f} ms, this "
+               f"{row['this_device_ms']:.5f} ms")
+        res["decode_store"] = row
+
+    print(smi)
+    print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

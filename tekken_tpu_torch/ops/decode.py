@@ -11,8 +11,9 @@ total:
 - ``decode_bytes_compact`` for vocabs whose tokens are at most 32 bytes:
   one row of a padded per-rank table (``padded_table``) per token, stored
   at the token's output offset.  CUDA tensors launch the kernel
-  csrc/decode_store.cu (``_decode_store``); CPU tensors take the plain
-  version ``decode_bytes_compact_reference``.
+  csrc/decode_store.cu (``_decode_store``), which computes the lengths,
+  their scan, the bytes and the total in one launch; CPU tensors take the
+  plain version ``decode_bytes_compact_reference``.
 - ``decode_bytes_impl``, plain torch, for vocabs with a longer token: a
   gather per output byte from the flat byte table (the JAX package's XLA
   formulation).
@@ -118,9 +119,10 @@ def decode_bytes_compact_reference(tokens, n_tokens: int, bytes32, lentab,
     """Plain PyTorch version of the decode store kernel.
 
     tokens (T,) engine ranks (entries past n_tokens ignored; ranks are
-    clamped to the table) -> (bytes u8[out_cap], total): token i's
+    clamped to the table) -> (bytes u8[out_cap], total int32): token i's
     ``lentab[tok]`` bytes from its row of ``bytes32`` at its exclusive-cumsum
-    offset, zeros past total, bytes past out_cap dropped."""
+    offset, zeros past total, bytes past out_cap dropped.  The lengths are
+    at most sw4, as ``padded_table`` builds them."""
     _check_compact(tokens, bytes32, lentab, out_cap)
     sw4 = bytes32.shape[1]
     tok, length, out_off, total = _spans(tokens, n_tokens, lentab)
@@ -129,15 +131,15 @@ def decode_bytes_compact_reference(tokens, n_tokens: int, bytes32, lentab,
     ok = (jl < length[:, None]) & (dst < out_cap)
     out = torch.zeros(out_cap + 1, dtype=torch.uint8, device=tokens.device)
     out[torch.where(ok, dst, out_cap)] = (bytes32[tok] & 255).to(torch.uint8)
-    return out[:out_cap], total
+    return out[:out_cap], total.to(torch.int32)
 
 
 def decode_bytes_compact(tokens, n_tokens: int, bytes32, lentab,
                          out_cap: int):
     """The decode byte store; same contract as
-    ``decode_bytes_compact_reference``.  CUDA tensors compute the lengths,
-    their exclusive cumsum and the total in torch and launch the kernel
-    (``_decode_store``); CPU tensors take the plain version."""
+    ``decode_bytes_compact_reference``.  CUDA tensors launch the kernel,
+    which computes the lengths, their exclusive cumsum, the bytes and the
+    total itself (``_decode_store``); CPU tensors take the plain version."""
     if tokens.device.type == "cpu":
         return decode_bytes_compact_reference(tokens, n_tokens, bytes32,
                                               lentab, out_cap)
@@ -146,32 +148,60 @@ def decode_bytes_compact(tokens, n_tokens: int, bytes32, lentab,
     if dev.type != "cuda":
         raise ValueError(f"decode_bytes_compact runs on cpu or cuda tensors, "
                          f"not {dev.type}")
-    if (bytes32.dtype != torch.int32 or not bytes32.is_contiguous()
-            or bytes32.device != dev):
-        raise ValueError("bytes32 must be a contiguous int32 tensor on the "
-                         "tokens' device")
-    tok, length, out_off, total = _spans(tokens, n_tokens, lentab)
-    i32 = torch.int32
-    out = _decode_store(tok.to(i32), length.to(i32), out_off.to(i32),
-                        total.to(i32).reshape(1), bytes32, out_cap)
-    return out, total
+    for name, t in (("tokens", tokens), ("bytes32", bytes32),
+                    ("lentab", lentab)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"the tokens' device")
+    return _decode_store(tokens, n_tokens, bytes32, lentab, out_cap)
 
 
-def _decode_store(tok, length, out_off, total, bytes32, out_cap: int):
-    """Launch the decode store kernel: token i's ``length[i]`` bytes from
-    row ``tok[i]`` of ``bytes32`` at ``out_off[i]``, zeros from ``total``
-    to ``out_cap``.  tok, length, out_off: (T,) int32; total: (1,) int32;
-    all contiguous on one CUDA device, as ``decode_bytes_compact`` makes
-    and checks them.  Returns u8[out_cap]."""
-    dev = tok.device
-    sw4 = bytes32.shape[1]
+# tokens a CTA of the decode store kernel takes (kTile in decode_store.cu)
+DECODE_TILE = 1024
+# (device index, stream) -> [status words of the kernel's chained scan,
+# epoch of the last call].  A word holds the epoch of the call that wrote
+# it, so a call never reads an earlier call's words and the buffer is
+# zeroed only when it is made (or when the 32-bit epoch wraps).  Calls on
+# one stream run in order; a CUDA graph would replay one epoch, so the
+# store is not captured in one.
+_SCAN_STATE: dict = {}
+
+
+def _scan_state(dev, stream: int, tiles: int):
+    key = (dev.index, stream)
+    st = _SCAN_STATE.get(key)
+    if st is None or st[0].numel() < tiles:
+        st = _SCAN_STATE[key] = [
+            torch.zeros(max(tiles, 64), dtype=torch.int64, device=dev), 0]
+    if st[1] == 0xFFFFFFFF:
+        st[0].zero_()
+        st[1] = 0
+    st[1] += 1
+    return st[0], st[1]
+
+
+def _decode_store(tokens, n_tokens: int, bytes32, lentab, out_cap: int):
+    """Launch the decode store kernel on the raw inputs: the lengths (0 past
+    n_tokens, ranks clamped to the table), their exclusive scan, every byte
+    and the zeros from the total to out_cap.  tokens (T,), bytes32 and
+    lentab int32, contiguous on one CUDA device, as
+    ``decode_bytes_compact`` checks them.  Returns (u8[out_cap], total
+    int32)."""
+    dev = tokens.device
+    T = tokens.shape[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty(out_cap, dtype=torch.uint8, device=dev)
-    _build.launch(
-        "decode_store", tok.data_ptr(), length.data_ptr(), out_off.data_ptr(),
-        total.data_ptr(), bytes32.data_ptr(), sw4.bit_length() - 1,
-        bytes32.shape[0], tok.shape[0], out.data_ptr(), out_cap,
-        torch.cuda.current_stream(dev).cuda_stream)
-    return out
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    status, epoch = _scan_state(dev, stream, -(-T // DECODE_TILE))
+    if not _build.launch(
+            "decode_store", tokens.data_ptr(), T,
+            max(0, min(int(n_tokens), T)), lentab.data_ptr(),
+            bytes32.shape[0], bytes32.data_ptr(),
+            bytes32.shape[1].bit_length() - 1, out.data_ptr(), out_cap,
+            total.data_ptr(), status.data_ptr(), status.numel(), epoch,
+            stream):
+        total.zero_()             # no token and no byte: nothing launched
+    return out, total
 
 
 def _bucket(n: int) -> int:

@@ -104,6 +104,45 @@ def test_stage1_kernel_matches_plain(dev, rules, R, n_words):
         assert torch.equal(g, w), (k, torch.nonzero(g != w)[:5].tolist())
 
 
+# lanes a tile of the stage1_compact kernel walks (kTile in
+# csrc/stage1_compact.cu)
+TILE = 2048
+
+
+def _tile_edge_texts(rng, kind, R):
+    """Rows whose lengths fall at and around the tile edges, a row that is
+    one piece, a row of single-byte pieces and rows of contractions that
+    straddle the first tile edge."""
+    src = " ".join(_texts(rng, kind, 8, R))
+    while len(src) < R:
+        src += " " + src
+    texts = [src[:n] for n in (TILE - 1, TILE, TILE + 1, 2 * TILE + 1, R,
+                               R - 1, 1, 0) if n <= R]
+    texts += ["a" * R, "a " * (R // 2)]
+    texts += ["q" * (TILE + d) + "'ll x've y'd z're 's" * 4
+              for d in range(-6, 2)]
+    return texts
+
+
+@pytest.mark.parametrize("rules", ["simple", "general", "external"])
+@pytest.mark.parametrize("R", [TILE - 1, TILE, TILE + 1, 2 * TILE + 16],
+                         ids=["tile-1", "tile", "tile+1", "2tile+16"])
+def test_stage1_kernel_tile_edges(dev, rules, R):
+    """Every plane at every lane at the tile edges: widths that are no
+    multiple of 16 take the kernel's byte-load path."""
+    kind = {"simple": "simple", "general": "general", "external": "utf8"}[rules]
+    buf, lens = _rows(_tile_edge_texts(random.Random(R), kind, R), R)
+    b = torch.from_numpy(buf).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    kw = {"boundary": byte_boundaries(b, ln)} if rules == "external" else {}
+    want = stage1_compact_reference(b, ln, 3, 1 << 12, 0x9E3779B9, rules,
+                                    **kw)
+    got = stage1_compact(b, ln, 3, 1 << 12, 0x9E3779B9, rules, **kw)
+    torch.cuda.synchronize()
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), (k, torch.nonzero(g != w)[:5].tolist())
+
+
 @pytest.mark.parametrize("n_words", [0, 3, 6])
 @pytest.mark.parametrize("R", [300, 5000, 1 << 16])
 def test_stage1_fused_kernel_matches_plain(dev, R, n_words):
@@ -143,8 +182,47 @@ def test_decode_kernel_matches_plain(dev, tok, n_tokens):
                                    out_cap)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["decode_store"] == before + 1
+    assert gt.dtype == wt.dtype == torch.int32
     assert int(gt) == int(wt)
     assert torch.equal(got, want), torch.nonzero(got != want)[:5].tolist()
+
+
+# tokens a CTA of the decode store kernel takes
+DECODE_TILE = 1024
+
+
+@pytest.mark.parametrize("T,n,sw4,cap", [
+    (4096, 1023, 8, "4x"), (4096, 1024, 8, "4x"), (4096, 1025, 8, "4x"),
+    (3000, 3000, 8, "4x"), (3000, 2500, 16, "4x"), (2053, 2000, 2, "4x"),
+    (5000, 5000, 32, "4x"), (1024, 0, 8, "4x"), (3000, 3000, 8, "half"),
+], ids=["tile-1", "tile", "tile+1", "ragged-T", "mid-tile", "sw4-2",
+        "sw4-32", "no-tokens", "cap-short"])
+def test_decode_kernel_tile_edges(dev, T, n, sw4, cap):
+    """A synthetic table with lengths 0..sw4: n_tokens on both sides of a
+    tile edge, T no multiple of the tile, out_cap at least 4x the total
+    (or short of it), and three calls in a row that reuse the kernel's
+    scan state with new epochs."""
+    g = np.random.default_rng(T + n + sw4)
+    n_ranks = 300
+    lentab = torch.from_numpy(
+        g.integers(0, sw4 + 1, n_ranks).astype(np.int32)).to(dev)
+    bytes32 = torch.from_numpy(
+        g.integers(0, 256, (n_ranks, sw4)).astype(np.int32)).to(dev)
+    for call in range(3):
+        t = torch.from_numpy(
+            g.integers(-5, n_ranks + 5, T).astype(np.int32)).to(dev)
+        total = int(lentab[t[:n].clamp(0, n_ranks - 1)].sum())
+        out_cap = 4 * total + 13 if cap == "4x" else total // 2
+        want, wt = decode_bytes_compact_reference(t, n, bytes32, lentab,
+                                                  out_cap)
+        before = _build.LAUNCHES["decode_store"]
+        got, gt = decode_bytes_compact(t, n, bytes32, lentab, out_cap)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["decode_store"] == before + 1
+        assert gt.dtype == wt.dtype == torch.int32 and gt.shape == wt.shape
+        assert int(gt) == int(wt) == total, call
+        assert torch.equal(got, want), (
+            call, torch.nonzero(got != want)[:5].tolist())
 
 
 def test_empty_inputs_launch_nothing(dev, tok):

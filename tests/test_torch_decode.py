@@ -87,6 +87,31 @@ def test_decode_plain_versions_match_jax(toks, T, n):
         assert np.array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("n", [255, 256, 257])
+def test_decode_store_total_is_int32(toks, n):
+    """decode_bytes_compact on CPU tensors at n_tokens on both sides of a
+    256-token boundary: the plain version's total is int32, as the JAX
+    function's is, and it and every byte equal decode_bytes_pallas_impl's."""
+    import jax.numpy as jnp
+
+    from tekken_tpu.ops.decode import decode_bytes_pallas_impl
+
+    tok, port = toks
+    jd = _jax_decoder(tok)
+    pd = tdecode.DeviceDecoder(port, device="cpu")
+    ranks = np.random.default_rng(n).integers(0, pd._n_ranks, 512,
+                                              dtype=np.int32)
+    cap = pd.out_cap_for(ranks[:n])
+    want, wt = decode_bytes_pallas_impl(jnp.asarray(ranks), n, jd._bytes32,
+                                        jd._lentab, cap, jd._sw4)
+    got, gt = tdecode.decode_bytes_compact(torch.from_numpy(ranks), n,
+                                           pd._bytes32, pd._lentab, cap)
+    assert np.asarray(wt).dtype == np.int32
+    assert gt.dtype == torch.int32 and gt.shape == ()
+    assert int(gt) == int(wt)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 def test_gather_formulation_for_long_tokens(long_toks):
     jtok, port = long_toks
     jd = _jax_decoder(jtok)
