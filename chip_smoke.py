@@ -8,13 +8,15 @@ results against the oracle.
 
 Phases:
 1. the card's name and power limit; nvcc builds of the four kernels, in
-   parallel;
+   parallel, and a check that ptxas gives the merge kernel's 4- and
+   8-lane instantiations no stack frame;
 2. the full-width configuration: 130,872 inner ranks + 1,000 specials
    from prefix chains over 40,000 random words (bench.py's builders,
    copied here), and its device tables;
 3. each kernel against its plain version, bit for bit, on the card:
    stage 1 with rules simple / general / external at (1024, 2048) and a
-   long-row case at R = 2^16; the merge at P = 4, 8, 32, fixed and looped;
+   long-row case at R = 2^16; the merge's matrix entry at P = 4, 8, 32
+   and 64, fixed and looped;
    the fused stage 1 for n_words 0, 3 and 6 at (1024, 2048) and on rows
    of 2^16 (one that is one piece, empty ones, lengths no multiple of the
    tile); the decode store at T = 65,536 for 65,536, 65,535, 1 and 0
@@ -26,7 +28,8 @@ Phases:
    (1024 x 2048 each) and a mixed batch with 1% non-ASCII docs.  The
    launch counts are zeroed just before and read just after; a sample
    of 64 docs per batch is held against the oracle; throughput, the
-   device time and a per-stage breakdown are printed;
+   device time and a per-stage breakdown (each stage the median of 5
+   clocked calls) are printed;
    path B, the unrouted flat encode (PackedEncoder._encode_buffer with
    route None) on the route-1 batch (the simple branch: the fused stage 1)
    and the route-2 and route-3 batches (the general and UTF-8 branches),
@@ -35,14 +38,18 @@ Phases:
    lists with BOS/EOS (~1.6 M tokens, ~25 chunks of 2^16): every doc
    round-trips to its text and 64 docs equal the host decode under KEEP
    and IGNORE.  Each path zeroes the launch counts just before it and
-   reads them just after; MB/s is the median of 5 calls after a warm-up;
+   reads them just after, and each encode call's merge buckets must take
+   one launch; MB/s is the median of 5 calls after a warm-up;
 5. the kernels at the paths' own inputs: time, plain time, bound, and one
    JSON line ``{"kernels": [...]}`` for all four.  stage1_compact is timed
    at each of its launches on the routed encode path (one ``[kernel]``
    line each); its ``ms``, ``plain_ms`` and ``bound_ms`` in the JSON line
-   are the sums over those launches.  The decode store's ``ms`` is a call
-   through ``decode_bytes_compact``; its line also gives the launch alone
-   and the kernel's device time from a profiler trace;
+   are the sums over those launches.  The bucket merge is held against
+   ``merge_buckets_reference`` and timed at every launch of both encode
+   paths (one line each, with its device time from a profiler trace); its
+   JSON numbers are the means a launch.  The decode store's ``ms`` is a
+   call through ``decode_bytes_compact``; its line also gives the launch
+   alone and the kernel's device time from a profiler trace;
 6. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  Without a GPU the script exits
@@ -71,7 +78,8 @@ from tekken_tpu_torch.ops import packed as packed_mod  # noqa: E402
 from tekken_tpu_torch.ops.bpe import INF, merge_rows_compact  # noqa: E402
 from tekken_tpu_torch.ops.decode import (  # noqa: E402
     DeviceDecoder, decode_bytes_compact, decode_bytes_compact_reference)
-from tekken_tpu_torch.ops.merge import merge_rows_compact_fused  # noqa: E402
+from tekken_tpu_torch.ops.merge import (  # noqa: E402
+    merge_buckets, merge_buckets_reference, merge_rows_compact_fused)
 from tekken_tpu_torch.ops.pretokenize import byte_boundaries  # noqa: E402
 from tekken_tpu_torch.ops.stage1 import (  # noqa: E402
     stage1_compact, stage1_compact_reference, stage1_fused,
@@ -352,36 +360,95 @@ def median_s(fn, reps=5):
     return walls[len(walls) // 2], walls[0], walls[-1]
 
 
-def merge_bound_ms(rank, n_in, n_out):
-    B2, P = rank.shape
-    merges = int((n_in - n_out).sum())
-    # rank + pr read, rank written, n read + written; each merge reads at
-    # least one 16-byte cuckoo row for each of its two probes
-    moved = 3 * B2 * P * 4 + 8 * B2 + merges * 2 * 16
-    ops = merges * (4 * P + 40)       # argmin over P lanes, hashes, shifts
+def clocked_stages(fn, reps=5):
+    """Per-stage median ms over reps clocked calls fn(clock) (each stage
+    mark synchronizes, so these calls are separate from the timed ones)."""
+    runs = []
+    for _ in range(reps):
+        clock = packed_mod.StageClock()
+        fn(clock)
+        runs.append(clock.times)
+    return {k: sorted(r.get(k, 0.0) for r in runs)[reps // 2] * 1e3
+            for k in runs[0]}
+
+
+def merge_bound_ms(tok, w, byte_rank, plen, tiers, tables, start=None):
+    """Bound of one bucket merge call, from what this call's rows need:
+    each tier row's 8-byte word; for each live row its geometry, its lane
+    bytes (int64 ranks) and the first round's dense-table reads; two
+    16-byte cuckoo rows a merge; each token written.  The merges and the
+    tokens are counted by running each tier's plain version on its own."""
+    N = byte_rank.shape[0]
+    flat_plen = plen.reshape(-1)
+    moved = ops = 0
+    for lo, rows, P, fixed in tiers:
+        wv = w[lo:lo + rows]
+        jj = (wv >> 2).clamp(0, N - 1)
+        keep = (wv & 3) == 1
+        if start is not None:
+            keep &= start.reshape(-1)[jj] >= 0
+        L = torch.where(keep, flat_plen[jj].to(torch.int64), 0)
+        lanes = L.clamp(max=P)
+        mark = torch.full_like(tok, -7)
+        merge_buckets_reference(mark, w, byte_rank, plen, [(lo, rows, P,
+                                                           fixed)],
+                                tables, start)
+        written = int((mark[:N] >= 0).sum())
+        merges = int(L.sum()) - written
+        live = int(keep.sum())
+        moved += (8 * rows + live * (8 if start is not None else 4)
+                  + 8 * int(lanes.sum()) + 4 * int((lanes - 1).clamp(min=0)
+                                                   .sum())
+                  + 32 * merges + 4 * written)
+        ops += merges * (4 * P + 40)  # argmin over P lanes, hashes, shifts
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def stack_frames(ptxas):
+    """(entry function, stack frame bytes) from nvcc's ptxas -v lines."""
+    out, fn = [], None
+    for ln in ptxas.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "bytes stack frame" in ln and fn is not None:
+            out.append((fn, int(ln.split("bytes stack frame")[0].split()[-1])))
+            fn = None
+    return out
+
+
 class Capture:
     """Records the inputs the main path passes to a kernel wrapper and
-    calls the real wrapper (the launch is counted there, once)."""
+    calls the real wrapper (the launch is counted there, once).  With
+    ``clone_first`` it records a copy of the first argument, which the
+    wrapper updates in place."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, clone_first=False):
         self.module, self.name = module, name
         self.real = getattr(module, name)
+        self.clone_first = clone_first
         self.calls = []
 
     def __enter__(self):
         def spy(*args, **kw):
-            self.calls.append((args, kw))
+            rec = ((args[0].clone(),) + args[1:] if self.clone_first
+                   else args)
+            self.calls.append((rec, kw))
             return self.real(*args, **kw)
         setattr(self.module, self.name, spy)
         return self
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.real)
+
+
+def one_launch_a_call(what, counts, merge_calls):
+    """Every bucket merge call (one an encode call at most) is one
+    launch."""
+    if counts["merge_rows"] != len(merge_calls):
+        raise AssertionError(f"{what}: {counts['merge_rows']} merge launches "
+                             f"for {len(merge_calls)} bucket merge calls")
 
 
 # --------------------------------------------------------------------- #
@@ -406,6 +473,16 @@ def main():
             f"cached={info['cached']}")
         for ln in info["ptxas"].splitlines():
             log(f"[build]   {ln.strip()}")
+    # the merge rows of 4 and 8 lanes live in registers: no stack frame
+    frames = [(fn, b) for fn, b in stack_frames(built["merge_rows"]["ptxas"])
+              if any(k in fn for k in ("merge_buckets_kernelILi8E",
+                                       "merge_rows_kernelILi4E",
+                                       "merge_rows_kernelILi8E"))]
+    if not built["merge_rows"]["cached"]:
+        if len(frames) != 3 or any(b for _, b in frames):
+            raise AssertionError(f"merge_rows: P<=8 stack frames {frames}")
+        log(f"[build] merge_rows P=4/P=8 instantiations: stack frames "
+            f"{[b for _, b in frames]} bytes")
 
     # ---- 2. full-width configuration ----
     t0 = time.perf_counter()
@@ -457,7 +534,7 @@ def main():
             f"n_words={nw}: identical, {int(got[-1].sum())} pieces")
 
     g = np.random.default_rng(5)
-    for P in (4, 8, 32):
+    for P in (4, 8, 32, 64):
         B2 = 2 * B_MAIN
         n0 = g.integers(0, P + 1, B2).astype(np.int32)
         letters = np.frombuffer(b"etaoinshrdlucmwfgypbvkjxqz ", np.uint8)
@@ -518,12 +595,13 @@ def main():
     for name, texts in batches.items():
         nbytes = sum(len(t.encode("utf-8")) for t in texts)
         with Capture(packed_mod, "stage1_compact") as c1, \
-                Capture(packed_mod, "merge_rows_compact_fused") as c2:
+                Capture(packed_mod, "merge_buckets", clone_first=True) as c2:
             _build.reset_launches()
             out = tok.encode_batch(texts)
             torch.cuda.synchronize()
             counts = dict(_build.LAUNCHES)
         captured[name] = (c1.calls, c2.calls)
+        one_launch_a_call(f"{name}", counts, c2.calls)
         routed_out[name] = out
         for k, v in counts.items():
             launches[k] += v
@@ -541,17 +619,15 @@ def main():
 
         # end to end (host pack + device + readback + host splice)
         e2e, lo_, hi_ = median_s(lambda: tok.encode_batch(texts))
-        clock = packed_mod.StageClock()
-        tok.encode_batch(texts, clock=clock)
-        # the stages that run on the card (each mark synchronizes)
-        dev_ms = sum(clock.times.get(k, 0.0) for k in DEVICE_STAGES) * 1e3
+        stages = clocked_stages(
+            lambda clock: tok.encode_batch(texts, clock=clock))
+        dev_ms = sum(stages.get(k, 0.0) for k in DEVICE_STAGES)
         results[name] = {
             "docs": len(texts), "bytes": nbytes, "tokens": n_tok,
             "launches": counts, "overflow_rows": stats["overflow_rows"],
             "fb_spans": stats["fb_spans"], "e2e_s": e2e,
             "e2e_MB_per_s": nbytes / e2e / 1e6, "e2e_min_max_s":
-            [lo_, hi_], "device_ms": dev_ms,
-            "stages_ms": {k: v * 1e3 for k, v in clock.times.items()},
+            [lo_, hi_], "device_ms": dev_ms, "stages_ms": stages,
         }
         log(f"[main] {name}: {len(texts)} docs, {nbytes} bytes, {n_tok} "
             f"tokens; launches {counts}; overflow rows "
@@ -561,7 +637,7 @@ def main():
             f"(min {lo_ * 1e3:.1f}, max {hi_ * 1e3:.1f}) = "
             f"{nbytes / e2e / 1e6:.2f} MB/s; device path {dev_ms:.2f} ms; "
             "stages ms " + json.dumps(
-                {k: round(v * 1e3, 3) for k, v in clock.times.items()}))
+                {k: round(v, 3) for k, v in stages.items()}))
     log(f"[main] launches over the routed encode path: {launches}")
     for k in ("stage1_compact", "merge_rows"):
         if launches[k] <= 0:
@@ -581,12 +657,13 @@ def main():
             return enc._encode_buffer(buf, lens, len(texts), None, clock)
 
         with Capture(packed_mod, "stage1_fused") as c1, \
-                Capture(packed_mod, "merge_rows_compact_fused") as c2:
+                Capture(packed_mod, "merge_buckets", clone_first=True) as c2:
             _build.reset_launches()
             out = flat_run()
             torch.cuda.synchronize()
             counts = dict(_build.LAUNCHES)
         flat_calls[name] = (c1.calls, c2.calls)
+        one_launch_a_call(f"flat {name}", counts, c2.calls)
         for k, v in counts.items():
             flat_launches[k] += v
         want_fused = 1 if name == "route1_bench" else 0
@@ -603,14 +680,13 @@ def main():
                 raise AssertionError(f"flat {name}: doc {i} differs from the "
                                      f"oracle")
         e2e, lo_, hi_ = median_s(flat_run)
-        clock = packed_mod.StageClock()
-        flat_run(clock)
-        dev_ms = sum(clock.times.get(k, 0.0) for k in DEVICE_STAGES) * 1e3
+        stages = clocked_stages(flat_run)
+        dev_ms = sum(stages.get(k, 0.0) for k in DEVICE_STAGES)
         results[f"flat_{name}"] = {
             "docs": len(texts), "bytes": nbytes, "launches": counts,
             "e2e_s": e2e, "e2e_MB_per_s": nbytes / e2e / 1e6,
             "e2e_min_max_s": [lo_, hi_], "device_ms": dev_ms,
-            "stages_ms": {k: v * 1e3 for k, v in clock.times.items()}}
+            "stages_ms": stages}
         log(f"[flat] {name}: {len(texts)} docs, {nbytes} bytes; launches "
             f"{counts}; every doc equals the routed result, 64-doc oracle "
             f"sample identical")
@@ -618,7 +694,7 @@ def main():
             f"(min {lo_ * 1e3:.1f}, max {hi_ * 1e3:.1f}) = "
             f"{nbytes / e2e / 1e6:.2f} MB/s; device path {dev_ms:.2f} ms; "
             "stages ms " + json.dumps(
-                {k: round(v * 1e3, 3) for k, v in clock.times.items()}))
+                {k: round(v, 3) for k, v in stages.items()}))
     log(f"[flat] launches over the flat encode path: {flat_launches}")
     for k in ("stage1_fused", "merge_rows"):
         if flat_launches[k] <= 0:
@@ -695,28 +771,41 @@ def main():
     log(f"[kernel] stage1_compact over its {n1} launches: {ms1:.4f} ms, "
         f"plain {plain1:.3f} ms, bound {bound1:.4f} ms")
 
-    m_calls = captured["route1_bench"][1]
-    if not m_calls:
+    # the bucket merge at every call of both encode paths: parity on each
+    # batch's captured inputs, and times of each call
+    m_calls = [(name, c) for name in batches for c in captured[name][1]]
+    m_calls += [(f"flat_{name}", c) for name in flat_calls
+                for c in flat_calls[name][1]]
+    if not captured["route1_bench"][1] or not flat_calls["route1_bench"][1]:
         raise AssertionError("the route-1 batch launched no merge")
-    tot_ms = tot_plain = tot_bound = 0.0
+    tot_ms = tot_plain = tot_bound = tot_dev = 0.0
     err2 = 0
     by_max = (0.0, "bytes")
-    for (r, pr, n, packed, s1, s2), kw in m_calls:
-        got = merge_rows_compact_fused(r, pr, n, packed, s1, s2, **kw)
-        want = merge_rows_compact(r, pr, n, packed, s1, s2, **kw)
-        err2 = max(err2, check_equal("merge main path", got, want))
-        ms = cuda_ms(lambda: merge_rows_compact_fused(r, pr, n, packed, s1,
-                                                      s2, **kw), 20)
-        pm = cuda_ms(lambda: merge_rows_compact(r, pr, n, packed, s1, s2,
-                                                **kw), 3)
-        bnd, by2 = merge_bound_ms(r, n, got[1])
+    for name, ((tok0, *margs), kw) in m_calls:
+        N = margs[1].shape[0]
+        got = merge_buckets(tok0.clone(), *margs, **kw)
+        want = merge_buckets_reference(tok0.clone(), *margs, **kw)
+        err2 = max(err2, check_equal(f"merge_buckets {name}", (got[:N],),
+                                     (want[:N],)))
+        work = tok0.clone()
+        ms = cuda_ms(lambda: merge_buckets(work, *margs, **kw), 20)
+        dev_ = device_ms(lambda: merge_buckets(work, *margs, **kw),
+                         "merge_buckets_kernel")
+        pm = cuda_ms(lambda: merge_buckets_reference(work, *margs, **kw), 3)
+        bnd, by2 = merge_bound_ms(tok0, *margs, **kw)
         tot_ms, tot_plain, tot_bound = tot_ms + ms, tot_plain + pm, tot_bound + bnd
+        tot_dev += dev_
         by_max = max(by_max, (bnd, by2))
-        log(f"[kernel] merge_rows at {tuple(r.shape)} "
-            f"fixed_rounds={kw.get('fixed_rounds')}: {ms:.4f} ms, plain "
-            f"{pm:.3f} ms, bound {bnd:.5f} ms ({by2}), "
-            f"{int((n - got[1]).sum())} merges")
+        tiers = margs[3]
+        log(f"[kernel] merge_buckets {name} tiers (rows, P) "
+            f"{[(t[1], t[2]) for t in tiers]}: {ms:.4f} ms a call of the "
+            f"wrapper, {dev_:.4f} ms of device time, plain {pm:.3f} ms, "
+            f"bound {bnd:.5f} ms ({by2}), {int((got[:N] != tok0[:N]).sum())} "
+            f"token slots changed; identical to the plain version")
     k = len(m_calls)
+    log(f"[kernel] merge_rows over its {k} launches: {tot_ms / k:.4f} ms a "
+        f"call of the wrapper, {tot_dev / k:.4f} ms of device time, plain "
+        f"{tot_plain / k:.3f} ms, bound {tot_bound / k:.5f} ms a launch")
 
     f_calls = flat_calls["route1_bench"][0]
     (b, ln, nw, ws_, wseed_), _ = f_calls[0]

@@ -14,8 +14,10 @@ when the package is imported: the first wrapper call on a CUDA tensor
 builds what it needs, and ``build()`` builds every kernel at once, one
 nvcc process per source, all started together.
 
-``LAUNCHES`` counts kernel launches by name.  ``launch`` adds one where a
-C entry point launched its kernel and nowhere else (not where an empty
+``LAUNCHES`` counts kernel launches by name (a kernel's library may have
+several C entry points; a launch of any of them counts toward its name).
+``launch`` adds one where a C entry point launched its kernel and nowhere
+else (not where an empty
 input left nothing to launch), so a caller can zero the counts, run the
 encode path and read which kernels it went through.
 """
@@ -42,23 +44,29 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 
-# kernel name -> (source, C entry point, argtypes, error-string function)
+# kernel name -> (source, {C entry point: argtypes}, error-string function);
+# ``launch`` takes the first entry point unless it is named
 KERNELS = {
     "stage1_compact": (
-        "stage1_compact.cu", "tk_stage1_compact",
-        [_P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _P, _P, _P],
+        "stage1_compact.cu",
+        {"tk_stage1_compact": [_P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _P,
+                               _P, _P]},
         "tk_stage1_error"),
     "merge_rows": (
-        "merge_rows.cu", "tk_merge_rows",
-        [_P, _P, _P, _P, _U, _U, _U, _I, _I, _I, _I, _P, _P, _P],
+        "merge_rows.cu",
+        {"tk_merge_rows": [_P, _P, _P, _P, _U, _U, _U, _I, _I, _I, _P, _P,
+                           _P],
+         "tk_merge_buckets": [_I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _U,
+                              _U, _U, _P, _P]},
         "tk_merge_error"),
     "stage1_fused": (
-        "stage1_fused.cu", "tk_stage1_fused",
-        [_P, _P, _I, _I, _I, _U, _U, _P, _P],
+        "stage1_fused.cu",
+        {"tk_stage1_fused": [_P, _P, _I, _I, _I, _U, _U, _P, _P]},
         "tk_stage1_fused_error"),
     "decode_store": (
-        "decode_store.cu", "tk_decode_store",
-        [_P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _U, _P],
+        "decode_store.cu",
+        {"tk_decode_store": [_P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I,
+                             _U, _P]},
         "tk_decode_error"),
 }
 
@@ -153,30 +161,36 @@ def build(names=None) -> dict[str, dict]:
     return {n: BUILD_LOG[n] for n in names}
 
 
-def entry(name: str):
+def entry(name: str, fn_name: str | None = None):
     """(C entry point, error-string function) of a kernel, building and
-    loading its library on first use."""
+    loading its library on first use; the first entry point unless
+    ``fn_name`` names another."""
     with _lock:
         got = _libs.get(name)
         if got is None:
             build([name])
-            _, fn_name, argtypes, err_name = KERNELS[name]
+            _, entries, err_name = KERNELS[name]
             lib = ctypes.CDLL(_lib_path(name))
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fns = {}
+            for fname, argtypes in entries.items():
+                fn = getattr(lib, fname)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[fname] = fn
             err = getattr(lib, err_name)
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            got = _libs[name] = (lib, fn, err)
-    return got[1], got[2]
+            got = _libs[name] = (lib, fns, err)
+    fns = got[1]
+    return fns[fn_name or next(iter(fns))], got[2]
 
 
-def launch(name: str, *args) -> bool:
-    """Call a kernel's C entry point; raise on a launch error.  Returns
-    True and counts the launch, or False where the entry point had no work
-    to launch (it returns NO_LAUNCH for an empty input)."""
-    fn, err = entry(name)
+def launch(name: str, *args, fn_name: str | None = None) -> bool:
+    """Call a kernel's C entry point (``fn_name``, or its first); raise on
+    a launch error.  Returns True and counts the launch under ``name``, or
+    False where the entry point had no work to launch (it returns
+    NO_LAUNCH for an empty input)."""
+    fn, err = entry(name, fn_name)
     rc = fn(*args)
     if rc == NO_LAUNCH:
         return False

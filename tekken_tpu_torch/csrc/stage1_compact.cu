@@ -23,7 +23,8 @@
 // bench's width is one tile; each thread owns 4 consecutive lanes.  The
 // grid is persistent (two CTAs an SM): a CTA takes rows blockIdx.x,
 // + gridDim.x, ... and loads the first window of its next row while it
-// works on this one.  Per tile:
+// works on this one.  Per tile (steps 1-3 and the simple rules come from
+// stage1_tile.cuh, which the fused kernel shares):
 //   1. the tile's bytes, 16 before it and 32 past it, are staged once in
 //      shared memory with 16-byte loads (bytes at or past the row's
 //      length read as 0);
@@ -49,26 +50,14 @@
 // steps with byte loads and int32 stores.  The hashes are uint32
 // arithmetic (the TPU kernel emulated it in int32 with logical shifts).
 
-#include "stage1_rules.cuh"
+#include "stage1_tile.cuh"
 
 namespace {
 
 constexpr int kGeneralMaxRow = 8192;
-constexpr int kLanes = 4;                       // lanes a thread owns
-constexpr int kTile = kThreads * kLanes;        // 2048 lanes a tile
-constexpr int kHead = 16;                       // staged bytes before it
-constexpr int kWin = kHead + kTile + 32;        // staged bytes (131 x 16)
-constexpr int kMaxNw = 6;
 constexpr int kPlanes = 3 + kMaxNw;
 
 enum Rules { kSimple = 0, kGeneral = 1, kExternal = 2 };
-
-// The run class bits of a class word: exactly one of kL, kN, kW, kP for
-// a valid lane and none for an invalid one, so two lanes are in the same
-// run class (group) exactly when these bits are equal.
-__device__ __forceinline__ bool other_class(int a, int b) {
-  return ((a ^ b) & (kL | kN | kW | kP)) != 0;
-}
 
 // Class words held in shared memory (general rules).
 struct SharedRow {
@@ -83,23 +72,6 @@ struct SharedRow {
   __device__ bool change_next(int j) const {
     return j >= R - 1 || other_class(inf[j], inf[j + 1]);
   }
-};
-
-// Class words of lanes base .. base + 7 in registers (simple rules): the
-// rules at lane i read lanes i-4 .. i, so a thread's 4 lanes need the 4
-// before them.  Indices fold to constants once the lane loop unrolls.
-struct RegRow {
-  int c[2 * kLanes];
-  int base;
-  __device__ int info(int j) const { return c[j - base]; }
-  __device__ bool change(int j) const {
-    if (j < 0) return false;
-    return j == 0 || other_class(info(j), info(j - 1));
-  }
-  __device__ bool change_next(int j) const {
-    return other_class(info(j), info(j + 1));
-  }
-  __device__ bool differ(int a, int b) const { return other_class(a, b); }
 };
 
 // general rules at a valid lane, from the per-row scans in shared memory
@@ -255,16 +227,6 @@ struct Span {
   int lo, n_rec;
 };
 
-// the nw raw (unmasked) dwords of the bytes from lane s, s inside the
-// window with 4 * kMaxNw + 4 staged bytes past it
-__device__ __forceinline__ void window_dwords(const uint32_t* win, int win0,
-                                              int s, uint32_t* w) {
-  const int q = (s - win0) >> 2, sh = ((s - win0) & 3) * 8;
-#pragma unroll
-  for (int j = 0; j < kMaxNw; ++j)
-    w[j] = __funnelshift_r(win[q + j], win[q + j + 1], sh);
-}
-
 // every plane's value of record k (lo <= k < n_rec)
 __device__ __forceinline__ void record_values(const Outputs& o,
                                               const Span& sp, int k,
@@ -280,10 +242,7 @@ __device__ __forceinline__ void record_values(const Outputs& o,
   }
 #pragma unroll
   for (int j = 0; j < kMaxNw; ++j) {
-    const int rem = L - 4 * j;
-    const uint32_t m = rem >= 4 ? 0xffffffffu
-                                : (rem <= 0 ? 0u : (1u << (8 * rem)) - 1u);
-    w[j] &= m;
+    w[j] &= byte_mask(L - 4 * j);
   }
   v[0] = s;
   v[1] = L;
@@ -335,44 +294,6 @@ __device__ void store_span(const Outputs& o, const Span& sp, size_t row_off,
   fill_lanes(o, row_off, b4, hi);
 }
 
-// bytes [n, 16) of v set to 0 (0 <= n < 16)
-__device__ __forceinline__ uint4 keep_bytes(uint4 v, int n) {
-  uint32_t* c = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int r = n - 4 * q;
-    c[q] &= r >= 4 ? 0xffffffffu : (r <= 0 ? 0u : (1u << (8 * r)) - 1u);
-  }
-  return v;
-}
-
-// the 16 window bytes at row lane p (p a multiple of 16 when vec); bytes
-// outside [0, len) read as 0
-__device__ __forceinline__ uint4 stage16(const uint8_t* row, int p, int len,
-                                         bool vec) {
-  uint4 v = make_uint4(0, 0, 0, 0);
-  if (vec) {
-    if (p >= 0 && p < len) {
-      v = __ldg(reinterpret_cast<const uint4*>(row + p));
-      if (p + 16 > len) v = keep_bytes(v, len - p);
-    }
-  } else {
-    uint32_t c[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int b = 0; b < 16; ++b)
-      if (p + b >= 0 && p + b < len)
-        c[b >> 2] |= static_cast<uint32_t>(__ldg(row + p + b))
-                     << (8 * (b & 3));
-    v = make_uint4(c[0], c[1], c[2], c[3]);
-  }
-  return v;
-}
-
-__device__ __forceinline__ int row_len(const int32_t* lengths, int r, int R) {
-  const int len = __ldg(lengths + r);
-  return len < 0 ? 0 : (len > R ? R : len);
-}
-
 template <int kRules>
 __global__ void __launch_bounds__(kThreads, 2)
 stage1_compact_kernel(const uint8_t* __restrict__ byts,
@@ -417,6 +338,7 @@ stage1_compact_kernel(const uint8_t* __restrict__ byts,
       __syncthreads();
       const SharedRow srow{inf, R};
       general_scans(srow, S, U, F, NC, buf);
+      __syncthreads();   // the last chunk's F and NC, read across threads
       for (int j = threadIdx.x; j < len; j += kThreads)
         fl[j] = boundary_general(srow, S, U, F, NC, j) ? 1 : 0;
       __syncthreads();
@@ -446,18 +368,7 @@ stage1_compact_kernel(const uint8_t* __restrict__ byts,
       const int i0 = t0 + kLanes * threadIdx.x;
       unsigned m = 0;
       if (kRules == kSimple) {
-        RegRow rw;
-        rw.base = i0 - kLanes;
-        const uint32_t b0 = win[threadIdx.x + 3], b1 = win[threadIdx.x + 4];
-#pragma unroll
-        for (int e = 0; e < 2 * kLanes; ++e) {
-          const int pos = rw.base + e;
-          const int b = ((e < kLanes ? b0 : b1) >> (8 * (e & 3))) & 255;
-          rw.c[e] = (pos >= 0 && pos < len) ? cls[b] : 0;
-        }
-#pragma unroll
-        for (int k = 0; k < kLanes; ++k)
-          if (i0 + k < len && boundary_simple(rw, i0 + k)) m |= 1u << k;
+        m = simple_starts(win, cls, i0, len);
       } else if (kRules == kGeneral) {
 #pragma unroll
         for (int k = 0; k < kLanes; ++k)
@@ -480,11 +391,7 @@ stage1_compact_kernel(const uint8_t* __restrict__ byts,
       // 3. number the tile's starts and list their lanes
       const int n = __popc(m);
       int total;
-      const int incl = block_scan(n, 0, AddOp(), buf, &total);
-      int at = p_off + incl - n;
-#pragma unroll
-      for (int k = 0; k < kLanes; ++k)
-        if (m >> k & 1) lanes[at++] = i0 + k;
+      const int incl = number_starts(m, i0, p_off, lanes, buf, &total);
       if (last && threadIdx.x == 0) lanes[p_off + total] = len;
       // the tile's last start stays pending past a tile that does not end
       // the row: its owner keeps the raw dwords before the window changes
@@ -509,29 +416,6 @@ stage1_compact_kernel(const uint8_t* __restrict__ byts,
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// CTAs of the persistent grid: two an SM, the CTAs whose registers
-// __launch_bounds__ keeps room for (general rules on rows over 4096 bytes
-// fit one an SM in shared memory; the rest then wait their turn), or one a
-// row when there are fewer rows.  The SM count is read once a device.
-cudaError_t persistent_grid(int B, int* grid) {
-  static int sms_of[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  int sms = dev < 64 ? sms_of[dev] : 0;
-  if (sms == 0) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-    if (dev < 64) sms_of[dev] = sms;
-  }
-  *grid = B < 2 * sms ? B : 2 * sms;
-  return cudaSuccess;
-}
-
 template <int kRules>
 int launch(const uint8_t* byts, const uint8_t* flags, const int32_t* lengths,
            int B, int R, bool vec, const Outputs& o, int32_t* cnt,
@@ -544,6 +428,8 @@ int launch(const uint8_t* byts, const uint8_t* flags, const int32_t* lengths,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dyn));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  // (general rules on rows over 4096 bytes fit one CTA an SM in shared
+  // memory; the rest of the persistent grid then waits its turn)
   int grid = 0;
   const cudaError_t e = persistent_grid(B, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);

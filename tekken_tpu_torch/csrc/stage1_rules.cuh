@@ -1,6 +1,7 @@
 // The simple-ASCII boundary rules, the word-probe hash and a block-wide
 // scan, shared by the two stage-1 kernels (stage1_compact.cu and
-// stage1_fused.cu).  Each includes this header into its own library.
+// stage1_fused.cu, through stage1_tile.cuh).  Each includes this header
+// into its own library.
 
 #pragma once
 
@@ -47,35 +48,7 @@ __device__ __forceinline__ int char_info(int b) {
          (b == 32 ? kSP : 0) | (b == 39 ? kAP : 0) | (fold << 8);
 }
 
-// run class: letter 0, number 1, whitespace 2, other 3, invalid 4
-__device__ __forceinline__ int group(int info) {
-  if (info & kL) return 0;
-  if (info & kN) return 1;
-  if (info & kW) return 2;
-  if (info & kP) return 3;
-  return 4;
-}
-
 __device__ __forceinline__ int fold_of(int info) { return (info >> 8) & 31; }
-
-// Class words read straight from the row (the fused kernel's simple rules).
-struct GlobalRow {
-  const uint8_t* row;
-  int len;
-  __device__ int info(int j) const {
-    return (j >= 0 && j < len) ? char_info(__ldg(row + j)) : 0;
-  }
-  // change at a lane j >= 0 (the rules only read it where it matters)
-  __device__ bool change(int j) const {
-    if (j < 0) return false;
-    return j == 0 || group(info(j)) != group(info(j - 1));
-  }
-  __device__ bool change_next(int j) const {
-    return group(info(j)) != group(info(j + 1));
-  }
-  // two class words in different run classes
-  __device__ bool differ(int a, int b) const { return group(a) != group(b); }
-};
 
 // contraction at a free length-1 apostrophe run at lane j: bit 0 consumes
 // one letter ('s 't 'm 'd), bit 1 two ('re 've 'll)
@@ -112,7 +85,7 @@ __device__ void common_rules(const Row& rw, int i, int c, int m1, int m2,
 }
 
 // simple rules (no whitespace run > 1, no digit run > 3) at a valid lane;
-// Row gives the class words (GlobalRow, or the compact kernel's registers)
+// Row gives the class words (RegRow, stage1_tile.cuh)
 template <class Row>
 __device__ bool boundary_simple(const Row& rw, int i) {
   const int c = rw.info(i), m1 = rw.info(i - 1), m2 = rw.info(i - 2);
@@ -124,20 +97,6 @@ __device__ bool boundary_simple(const Row& rw, int i) {
   const bool b_num = (c & kN) && chg;
   const bool b_ws = (c & kW) && !((m1 & kP) && (c & kNL));
   return b_num || b_ls || b_lc || b_p || b_ws;
-}
-
-// The piece's first 4 * nw bytes (from `s`, `L` long) as little-endian
-// dwords, each masked to the bytes inside the piece.
-__device__ __forceinline__ void piece_dwords(const uint8_t* row, int s,
-                                             int L, int nw, uint32_t* w) {
-  for (int j = 0; j < nw; ++j) {
-    uint32_t v = 0;
-    for (int b = 0; b < 4; ++b) {
-      const int k = 4 * j + b;
-      if (k < L) v |= static_cast<uint32_t>(__ldg(row + s + k)) << (8 * b);
-    }
-    w[j] = v;
-  }
 }
 
 // word-map probe slot of a piece (vocab.word_hash)

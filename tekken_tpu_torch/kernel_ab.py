@@ -8,7 +8,7 @@ configuration and traffic).  OTHER is the root of another checkout of the
 repository, for example the parent commit unpacked with ``git archive``;
 its ``tekken_tpu_torch`` is loaded under another name and builds its own
 kernels into its own ``_build/``.  KERNEL is any of stage1_compact,
-stage1_fused and decode_store (all three by default).
+stage1_fused, decode_store and merge (all four by default).
 
 The inputs are captured from the main path at the full Tekken V7 width:
 stage1_compact at its launches on the route-1 (simple rules), route-2
@@ -20,9 +20,15 @@ version on those inputs, then the two are timed other, this, this, other
 (CUDA events, the mean of 50 calls each).  Beside stage1_compact at the
 route-1 shape it times two yardsticks: ``fill_(-1)`` of its (3 + nw, B, R)
 int32 planes, the least time PyTorch takes to write them, and a copy of
-its byte buffer.  For the decode store it also gives each kernel's device
-time from a profiler trace.  Prints one line a measurement, the card's
-name and power limit, and one JSON line last.
+its byte buffer; beside stage1_fused, ``fill_(0)`` of its planes.  For
+the decode store it also gives each kernel's device time from a profiler
+trace.  ``merge`` runs each checkout's ``packed_encode`` on the route-1
+batch, routed and flat, checks that both give the same outputs, and
+times its clocked ``merge`` stage (host time to a synchronize: the
+launches and the tensor work around them) in turns, the median of 11
+calls each, and the device time of one call's merge launches.  Prints
+one line a measurement, the card's name and power limit, and one JSON
+line last.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ import sys
 
 import torch
 
-KERNELS = ("stage1_compact", "stage1_fused", "decode_store")
+KERNELS = ("stage1_compact", "stage1_fused", "decode_store", "merge")
 REPS = 50
+MERGE_REPS = 11
 
 
 def load_other(root: str):
@@ -52,6 +59,51 @@ def load_other(root: str):
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def merge_turns(cs, tok, batches, packed_mod, other) -> dict:
+    """The clocked ``merge`` stage of each checkout's ``packed_encode`` on
+    the route-1 batch, routed and flat, in turns (the median of MERGE_REPS
+    calls each), and the device time of the merge launches of one call."""
+    o_packed = importlib.import_module(f"{other.__name__}.ops.packed")
+    texts = batches["route1_bench"]
+    enc = tok._get_packed_encoder(texts)
+    buf, lens = enc.pack(texts)
+    out = {}
+    for label, route in (("route1_bench", 1), ("flat_route1_bench", None)):
+        with cs.Capture(packed_mod, "packed_encode") as cap:
+            enc._encode_buffer(buf, lens, len(texts), route)
+        args = cap.calls[0][0]
+        want = packed_mod.packed_encode(*args)
+        fns = {}
+        for who, mod in (("other", o_packed), ("this", packed_mod)):
+            got = mod.packed_encode(*args)
+            for k, (g, w) in enumerate(zip(got, want)):
+                if not torch.equal(torch.as_tensor(g), torch.as_tensor(w)):
+                    raise AssertionError(f"{who} packed_encode {label} output "
+                                         f"{k} differs")
+
+            def stage(mod=mod):
+                clock = mod.StageClock()
+                mod.packed_encode(*args, clock=clock)
+                return clock.times["merge"] * 1e3
+            fns[who] = stage
+
+        def median(fn):
+            fn()
+            return sorted(fn() for _ in range(MERGE_REPS))[MERGE_REPS // 2]
+        o1, t1 = median(fns["other"]), median(fns["this"])
+        t2, o2 = median(fns["this"]), median(fns["other"])
+        row = {"other_ms": [o1, o2], "this_ms": [t1, t2]}
+        for who, mod in (("other", o_packed), ("this", packed_mod)):
+            row[f"{who}_device_ms"] = cs.device_ms(
+                lambda mod=mod: mod.packed_encode(*args), "merge_", 5)
+        cs.log(f"[ab] merge stage {label}: other {o1:.4f} {o2:.4f} ms, this "
+               f"{t1:.4f} {t2:.4f} ms; merge kernels' device time a call: "
+               f"other {row['other_device_ms']:.5f} ms, this "
+               f"{row['this_device_ms']:.5f} ms")
+        out[label] = row
+    return out
 
 
 def main(argv) -> None:
@@ -133,6 +185,16 @@ def main(argv) -> None:
         res["stage1_fused"] = turns(
             f"stage1_fused {tuple(args[0].shape)} n_words={args[2]}",
             fns["other"], fns["this"])
+        planes = torch.empty((len(want),) + tuple(args[0].shape),
+                             dtype=torch.int32, device=args[0].device)
+        res["stage1_fused"]["fill_ms"] = cs.cuda_ms(lambda: planes.fill_(0),
+                                                    REPS)
+        cs.log(f"[ab] yardstick: fill_(0) of stage1_fused's "
+               f"{tuple(planes.shape)} int32 planes "
+               f"{res['stage1_fused']['fill_ms']:.5f} ms")
+
+    if "merge" in kernels:
+        res["merge"] = merge_turns(cs, tok, batches, packed_mod, other)
 
     if "decode_store" in kernels:
         ids = [[tok.bos_id()] + x + [tok.eos_id()]

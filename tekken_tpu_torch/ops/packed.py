@@ -47,7 +47,7 @@ import torch
 
 from .bpe import INF, probe2
 from .hashing import to_i32
-from .merge import merge_rows_compact_fused
+from .merge import merge_buckets
 from .pretokenize import (GENERAL_MAX_ROW, ascii_boundaries, byte_boundaries,
                           row_valid)
 from .stage1 import stage1_compact, stage1_fused, stage1_planes
@@ -113,7 +113,7 @@ def packed_encode(byts, lengths, tables, route: int | None,
 
     Returns (tok, n_out, fb_start, fb_len, overflow, row_bad):
     tok int32 (B*R,) — tok[i] >= 0 is the token placed at flat byte i, in
-    byte order; n_out its count (0-d tensor); fb_start / fb_len the byte
+    byte order; n_out its count (0-d int32); fb_start / fb_len the byte
     spans of misses longer than ``fb_len_limit`` (-1 / 0 = none), which
     the host merges and splices — (NP32,) on the routed pipeline, (NPT,)
     on the flat path; overflow (int) nonzero when a bucket overflowed;
@@ -238,24 +238,19 @@ def _flat_encode(byts, lengths, tables, NP: int, fb_len_limit: int, clock):
     live = (w & 1) == 1
     start_r = w >> 2
     fb_r = live & ((w & 2) != 0)
-    plen_r = torch.where(live, plen[start_r.clamp(0, N - 1)], 0)
-    nseg0 = torch.where(fb_r, 0, plen_r)
     fb_start = torch.where(fb_r, start_r, -1).to(torch.int32)
-    fb_len = torch.where(fb_r, plen_r, 0).to(torch.int32)
-    start0 = torch.where(live & ~fb_r, start_r, -1)
+    fb_len = torch.where(fb_r, plen[start_r.clamp(0, N - 1)], 0).to(
+        torch.int32)
     dropped = mp_mark & (tgt_row == NPT)
     row_bad = torch.zeros(B + 1, dtype=torch.int32, device=dev)
     row_bad[torch.where(dropped, idx // R, B)] = 1
     row_bad = row_bad[:B]
     _mark(clock, "probe_emit", dev)
 
-    def rows_fn(lo, rows):
-        return nseg0[lo:lo + rows], start0[lo:lo + rows]
-
-    _merge_buckets(tok, byte_rank, rows_fn, (n_t, n_s, n_l, n_lm),
-                   (NP4, NP8, NP32), tables, N)
+    _merge_buckets(tok, w, byte_rank, s1[0], (n_t, n_s, n_l, n_lm),
+                   (NP4, NP8, NP32), tables)
     tok = tok[:N]
-    n_out = (tok >= 0).sum()
+    n_out = (tok >= 0).sum(dtype=torch.int32)
     _mark(clock, "merge", dev)
     return tok, n_out, fb_start, fb_len, overflow, row_bad
 
@@ -372,33 +367,17 @@ def _compact_encode(byts, lengths, tables, NP: int, route: int,
     row_bad = row_bad[:B]
     _mark(clock, "probe_emit", dev)
 
-    # byte-positional piece geometry for the merge rows and fb records:
-    # geo_full[j] = flat start of compact record j, geo_full[N + j] its plen
-    pos_full = torch.where(st >= 0, st.to(i64) + row_base, -1).reshape(N)
-    geo_full = torch.cat([pos_full, pl.reshape(N).to(i64)])
-
     if n_23:
         T = _tier(n_23, {64, max(64, NP3 // 64), max(64, NP3 // 16),
                          max(64, NP3 // 4), NP3})
         _p23_tier(tok, w[NPM:NPM + T], byte_rank, tables, N)
     _mark(clock, "p23", dev)
 
-    def rows_fn(lo, rows):
-        # bucket rows [lo, lo+rows): compact index -> (start, plen); fb
-        # rows merge zero lanes
-        wv = w[lo:lo + rows]
-        livev = (wv & 1) == 1
-        fbv = livev & ((wv & 2) != 0)
-        jj = (wv >> 2).clamp(0, N - 1)
-        g = geo_full[torch.cat([jj, jj + N])]
-        keep = livev & ~fbv
-        return (torch.where(keep, g[rows:], 0),
-                torch.where(keep, g[:rows], -1))
-
-    _merge_buckets(tok, byte_rank, rows_fn, (n_t, n_s, n_l, n_lm),
-                   (NP4, NP8, NP32), tables, N)
+    # merge rows index the compact records: their geometry is (st, pl)
+    _merge_buckets(tok, w, byte_rank, pl, (n_t, n_s, n_l, n_lm),
+                   (NP4, NP8, NP32), tables, start=st)
     tok = tok[:N]
-    n_out = (tok >= 0).sum()
+    n_out = (tok >= 0).sum(dtype=torch.int32)
     _mark(clock, "merge", dev)
 
     # fallback records (misses past the device-merge limit) sit in the
@@ -407,9 +386,10 @@ def _compact_encode(byts, lengths, tables, NP: int, route: int,
         wl = w[NP4 + NP8:NPM]
         fbl = ((wl & 1) == 1) & ((wl & 2) != 0)
         jj = (wl >> 2).clamp(0, N - 1)
-        g = geo_full[torch.cat([jj, jj + N])]
-        fb_start = torch.where(fbl, g[:NP32], -1).to(torch.int32)
-        fb_len = torch.where(fbl, g[NP32:], 0).to(torch.int32)
+        s = st.reshape(N)[jj].to(i64)
+        fb_start = torch.where(fbl & (s >= 0), s + jj // R * R,
+                               -1).to(torch.int32)
+        fb_len = torch.where(fbl, pl.reshape(N)[jj], 0).to(torch.int32)
     else:
         fb_start = torch.full((NP32,), -1, dtype=torch.int32, device=dev)
         fb_len = torch.zeros(NP32, dtype=torch.int32, device=dev)
@@ -454,49 +434,39 @@ def _p23_tier(tok, wv, byte_rank, tables, N):
     tok[torch.where(ok, dst, N)] = src.to(torch.int32)
 
 
-def _merge_buckets(tok, byte_rank, rows_fn, counts, caps, tables, N):
-    """Merge the P=4, P=8 and P=32 buckets (rows [0, NP4), [NP4, NP4+NP8)
-    and [NP4+NP8, NP4+NP8+NP32)), each in the smallest tier holding its
-    count.  counts = (n_t, n_s, n_l, n_lm): the rows each bucket fills, and
-    n_lm the long bucket's mergeable ones; caps = (NP4, NP8, NP32)."""
+def _bucket_tiers(counts, caps):
+    """The tiers of the P=4, P=8 and P=32 buckets (rows [0, NP4), [NP4,
+    NP4+NP8) and [NP4+NP8, NP4+NP8+NP32) of the bucket words), each the
+    smallest tier holding its count, as ``merge_buckets`` takes them: (lo,
+    rows, P, fixed rounds or None).  counts = (n_t, n_s, n_l, n_lm): the
+    rows each bucket fills, and n_lm the long bucket's mergeable ones;
+    caps = (NP4, NP8, NP32).  Empty buckets have no tier."""
     n_t, n_s, n_l, n_lm = counts
     NP4, NP8, NP32 = caps
+    tiers = []
     if n_t:
-        _merge_tier(tok, byte_rank, rows_fn, 0, _tier(
-            n_t, [64, max(64, NP4 // 16), max(64, NP4 // 4), NP4]), 4,
-            tables, N)
+        tiers.append((0, _tier(
+            n_t, [64, max(64, NP4 // 16), max(64, NP4 // 4), NP4]), 4, 3))
     if n_s:
-        _merge_tier(tok, byte_rank, rows_fn, NP4, _tier(
+        tiers.append((NP4, _tier(
             n_s, [64, max(64, NP8 // 16), max(64, NP8 // 4), NP8]),
-            P_SHORT, tables, N)
+            P_SHORT, P_SHORT - 1))
     if n_lm:
         # the tier covers every row the bucket fills: fb rows share the
         # bucket's numbering with the mergeable ones (ROADMAP.md, queue 3)
-        _merge_tier(tok, byte_rank, rows_fn, NP4 + NP8, _tier(
-            min(n_l, NP32), [64, max(64, NP32 // 4), NP32]), P_LANES,
-            tables, N)
+        tiers.append((NP4 + NP8, _tier(
+            min(n_l, NP32), [64, max(64, NP32 // 4), NP32]), P_LANES, None))
+    return tiers
 
 
-def _merge_tier(tok, byte_rank, rows_fn, lo, rows, P, tables, N):
-    """Merge bucket rows [lo, lo+rows) in a (rows, P) matrix and write the
-    tokens at start + lane, in place."""
-    dev = tok.device
-    pos = torch.arange(P, dtype=torch.int64, device=dev)[None, :]
-    n0, s0 = rows_fn(lo, rows)
-    lane_byte_pos = s0[:, None] + pos
-    lane_in = (pos < n0[:, None]) & (s0[:, None] >= 0)
-    r0 = torch.where(lane_in, byte_rank[lane_byte_pos.clamp(0, N - 1)], -1)
-    right = torch.cat([r0[:, 1:], torch.full_like(r0[:, :1], -1)], dim=1)
-    # the first round only pairs single bytes: one dense-table gather
-    q_ok = (pos + 1 < n0[:, None]) & (r0 >= 0) & (right >= 0)
-    pr0 = torch.where(q_ok, tables.dense[torch.where(q_ok, r0 * 256 + right, 0)],
-                      INF)
-    r, n = merge_rows_compact_fused(
-        r0.to(torch.int32).contiguous(), pr0.to(torch.int32).contiguous(),
-        n0.to(torch.int32).contiguous(), tables.packed, tables.seed1,
-        tables.seed2, fixed_rounds=P - 1 if P <= P_SHORT else None)
-    lane_ok = (pos < n.to(torch.int64)[:, None]) & (s0[:, None] >= 0)
-    tok[torch.where(lane_ok, lane_byte_pos, N)] = torch.where(lane_ok, r, -1)
+def _merge_buckets(tok, w, byte_rank, plen, counts, caps, tables,
+                   start=None):
+    """Merge every non-empty bucket of the words ``w`` in one
+    ``merge_buckets`` call (tiers from ``_bucket_tiers``; ``plen`` and
+    ``start`` give the rows' geometry, ops/merge.py)."""
+    tiers = _bucket_tiers(counts, caps)
+    if tiers:
+        merge_buckets(tok, w, byte_rank, plen, tiers, tables, start)
 
 
 # --------------------------------------------------------------------- #

@@ -22,12 +22,16 @@ from tekken_tpu_torch.oracle import encode_ranks
 from tekken_tpu_torch.ops.bpe import INF, merge_rows_compact
 from tekken_tpu_torch.ops.decode import (DeviceDecoder, decode_bytes_compact,
                                          decode_bytes_compact_reference)
-from tekken_tpu_torch.ops.merge import merge_rows_compact_fused
+from tekken_tpu_torch.ops.merge import (merge_buckets,
+                                        merge_buckets_reference,
+                                        merge_rows_compact_fused)
+from tekken_tpu_torch.ops.packed import _bucket_tiers
 from tekken_tpu_torch.ops.pretokenize import byte_boundaries
 from tekken_tpu_torch.ops.stage1 import (stage1_compact,
                                          stage1_compact_reference,
                                          stage1_fused, stage1_fused_reference)
 from tekken_tpu_torch.special_tokens import SpecialTokenPolicy
+from test_torch_merge_buckets import CAPS, bucket_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -104,8 +108,7 @@ def test_stage1_kernel_matches_plain(dev, rules, R, n_words):
         assert torch.equal(g, w), (k, torch.nonzero(g != w)[:5].tolist())
 
 
-# lanes a tile of the stage1_compact kernel walks (kTile in
-# csrc/stage1_compact.cu)
+# lanes a tile of the stage-1 kernels walks (kTile in csrc/stage1_tile.cuh)
 TILE = 2048
 
 
@@ -165,6 +168,32 @@ def test_stage1_fused_kernel_matches_plain(dev, R, n_words):
     for k, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(g, w), (k, torch.nonzero(g != w)[:5].tolist())
     assert int(got[0][len(texts) - 3, 0]) == R          # the one-piece row
+
+
+@pytest.mark.parametrize("n_words", [0, 3, 6])
+@pytest.mark.parametrize("R", [TILE - 1, TILE, TILE + 1, 2 * TILE + 16],
+                         ids=["tile-1", "tile", "tile+1", "2tile+16"])
+def test_stage1_fused_kernel_tile_edges(dev, R, n_words):
+    """Every plane at every lane at the tile edges: rows whose letter runs
+    are longer than a tile (the piece pending across tiles), widths no
+    multiple of 16, and the same rows again one byte into their buffer
+    (unaligned row starts: the byte-load path)."""
+    texts = _tile_edge_texts(random.Random(R), "simple", R)
+    buf, lens = _rows(texts, R)
+    B = buf.shape[0]
+    wsize, wseed = (1 << 12, 0x9E3779B9) if n_words else (1, 0)
+    flat = np.zeros(B * R + 16, np.uint8)
+    flat[1:1 + B * R] = buf.reshape(-1)
+    shifted = torch.from_numpy(flat).to(dev)[1:1 + B * R].view(B, R)
+    ln = torch.from_numpy(lens).to(dev)
+    for b in (torch.from_numpy(buf).to(dev), shifted):
+        want = stage1_fused_reference(b, ln, n_words, wsize, wseed)
+        got = stage1_fused(b, ln, n_words, wsize, wseed)
+        torch.cuda.synchronize()
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g, w), (k, torch.nonzero(g != w)[:5].tolist())
+    assert shifted.data_ptr() % 16
+    assert int(got[0][texts.index("a" * R), 0]) == R    # the one-piece row
 
 
 @pytest.mark.parametrize("n_tokens", [65536, 65535, 1, 0])
@@ -248,6 +277,15 @@ def test_empty_inputs_launch_nothing(dev, tok):
                                   tabs.seed2),
          merge_rows_compact(e, e, n, tabs.packed, tabs.seed1, tabs.seed2)),
     ]
+    # a bucket merge with no tier, and one whose tier has no row
+    inp = bucket_inputs(1, "flat", which="none", B=2, R=64)
+    args = [torch.from_numpy(inp[k]).to(dev)
+            for k in ("tok", "w", "byte_rank", "plen")]
+    for tiers in ([], [(0, 0, 4, 3)]):
+        pairs.append(((merge_buckets(args[0].clone(), *args[1:], tiers,
+                                     tabs),),
+                      (merge_buckets_reference(args[0].clone(), *args[1:],
+                                               tiers, tabs),)))
     torch.cuda.synchronize()
     assert all(v == 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
     for got, want in pairs:
@@ -325,6 +363,38 @@ def test_merge_kernel_matches_plain(dev, tok, P, fixed):
     assert bool((want_n < n).any())
     assert torch.equal(got_n, want_n)
     assert torch.equal(got_r, want_r)
+
+
+@pytest.mark.parametrize("limit", [8, 32])
+@pytest.mark.parametrize("which", ["all", "none", "tiny", "short", "long",
+                                   "tiny+long"])
+@pytest.mark.parametrize("layout", ["routed", "flat"])
+def test_merge_buckets_kernel_matches_plain(dev, tok, layout, which, limit):
+    """The bucket entry against merge_buckets_reference on every token
+    slot: routed and flat words, each bucket empty or not, fallback rows
+    mixed in, the P=32 bucket under limit 32, and pieces of control bytes
+    whose merges end before their fixed rounds do.  One launch a call with
+    a tier, none without."""
+    tabs = tok[0].device_tables(dev)
+    inp = bucket_inputs(len(which) + limit, layout, limit, which, B=32,
+                        R=1024)
+    tiers = _bucket_tiers(inp["counts"], CAPS)
+    assert bool(tiers) == (which != "none" and
+                           (which != "long" or limit > 8))
+    args = [torch.from_numpy(inp[k]).to(dev)
+            for k in ("w", "byte_rank", "plen")]
+    start = inp["start"]
+    start = None if start is None else torch.from_numpy(start).to(dev)
+    base = torch.from_numpy(inp["tok"]).to(dev)
+    want = merge_buckets_reference(base.clone(), *args, tiers, tabs, start)
+    before = _build.LAUNCHES["merge_rows"]
+    got = merge_buckets(base.clone(), *args, tiers, tabs, start)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["merge_rows"] == before + bool(tiers)
+    N = base.shape[0] - 1
+    assert torch.equal(got[:N], want[:N]), \
+        torch.nonzero(got[:N] != want[:N])[:5].tolist()
+    assert bool(tiers) == (not torch.equal(want[:N], base[:N]))
 
 
 def test_encode_batch_on_the_card(dev, tok):

@@ -163,13 +163,13 @@ def test_flat_long_bucket_matches_oracle(toks, monkeypatch):
     in the P=32 bucket and longer ones are spliced on the host."""
     tok, port = toks
     seen = []
-    real = tpacked.merge_rows_compact_fused
+    real = tpacked.merge_buckets
 
-    def spy(rank, *a, **kw):
-        seen.append(rank.shape[1])
-        return real(rank, *a, **kw)
+    def spy(tok, w, byte_rank, plen, buckets, *a, **kw):
+        seen.extend(P for _, _, P, _ in buckets)
+        return real(tok, w, byte_rank, plen, buckets, *a, **kw)
 
-    monkeypatch.setattr(tpacked, "merge_rows_compact_fused", spy)
+    monkeypatch.setattr(tpacked, "merge_buckets", spy)
     rng = random.Random(6)
     texts = [" ".join(_word(rng, 33, 40) for _ in range(6)) for _ in range(3)]
     texts += [" ".join(_word(rng, 9, 31) for _ in range(12))

@@ -153,13 +153,13 @@ def test_encode_batch_runs_merge_buckets_and_splice(toks, monkeypatch):
     are merged and spliced on the host."""
     tok, port = toks
     seen = []
-    real = tpacked.merge_rows_compact_fused
+    real = tpacked.merge_buckets
 
-    def spy(rank, *a, **kw):
-        seen.append(rank.shape[1])
-        return real(rank, *a, **kw)
+    def spy(tok, w, byte_rank, plen, buckets, *a, **kw):
+        seen.extend(P for _, _, P, _ in buckets)
+        return real(tok, w, byte_rank, plen, buckets, *a, **kw)
 
-    monkeypatch.setattr(tpacked, "merge_rows_compact_fused", spy)
+    monkeypatch.setattr(tpacked, "merge_buckets", spy)
     rng = random.Random(31)
     texts = [_prose(rng, 50, long_share=0.1) for _ in range(9)]
     got = port.encode_batch(texts)
@@ -178,13 +178,13 @@ def test_long_bucket_device_merge(toks, monkeypatch):
     tok, port = toks
     rng = random.Random(5)
     seen = []
-    real = tpacked.merge_rows_compact_fused
+    real = tpacked.merge_buckets
 
-    def spy(rank, *a, **kw):
-        seen.append(rank.shape[1])
-        return real(rank, *a, **kw)
+    def spy(tok, w, byte_rank, plen, buckets, *a, **kw):
+        seen.extend(P for _, _, P, _ in buckets)
+        return real(tok, w, byte_rank, plen, buckets, *a, **kw)
 
-    monkeypatch.setattr(tpacked, "merge_rows_compact_fused", spy)
+    monkeypatch.setattr(tpacked, "merge_buckets", spy)
     texts = [" ".join(_word(rng, 33, 40) for _ in range(14)) for _ in range(5)]
     texts += [" ".join(_word(rng, 9, 31) for _ in range(20))
               for _ in range(3)]
