@@ -1,13 +1,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels
 from this checkout, holds each against its plain PyTorch version, drives
-Tekkenizer.encode_batch, the unrouted flat encode and
-Tekkenizer.decode_batch at the full width of Tekken V7, and checks the
-results against the oracle.
+Tekkenizer.encode_batch, the unrouted flat encode,
+Tekkenizer.decode_batch, the data-parallel and corpus encoders and the
+audio ops at the full width of Tekken V7, and checks the results against
+the oracle and float64 references.
 
     python3 chip_smoke.py
 
 Phases:
-1. the card's name and power limit; nvcc builds of the four kernels, in
+1. the card's name and power limit; path E's host resampler references
+   start in two spawned processes (they end before phase 4, so the timed
+   paths have the host to themselves); nvcc builds of the four kernels, in
    parallel, and a check that ptxas gives the merge kernel's 4- and
    8-lane instantiations no stack frame;
 2. the full-width configuration: 130,872 inner ranks + 1,000 specials
@@ -40,6 +43,20 @@ Phases:
    and IGNORE.  Each path zeroes the launch counts just before it and
    reads them just after, and each encode call's merge buckets must take
    one launch; MB/s is the median of 5 calls after a warm-up;
+   path C, parallel.DistributedEncoder (4096 x 2048) on an NCCL process
+   group of one rank on cuda:0: encode_batch on the route-1 and mixed
+   batches, and with merge="host" on the route-1 batch (no merge launch),
+   every doc held against encode_batch's and 64 against the oracle, and
+   the unrouted encode_step on the route-1 batch held against path B;
+   path D, parallel.CorpusEncoder (1024 x 2048) writing JSONL from 4 shard
+   files of the route-1 docs and 8 docs of 3-5 rows (piece-safe
+   segments), the oversize docs and 64 lines held against
+   Tekkenizer.encode, and its stats; path E, audio at V7's constants:
+   the log and linear mel spectrograms of 32 clips of 30 s against a
+   float64 numpy reference (log-mel atol 1e-4; power rtol 1e-4 plus 1e-6
+   of the clip's peak), resample_poly_batched of 16 clips of 10 s from
+   44.1 to 16 kHz against resample_poly_host on two of them (atol 2e-4),
+   and encode_audio_batch of 32 clips, 16 of them at 44.1 kHz;
 5. the kernels at the paths' own inputs: time, plain time, bound, and one
    JSON line ``{"kernels": [...]}`` for all four.  stage1_compact is timed
    at each of its launches on the routed encode path (one ``[kernel]``
@@ -85,7 +102,7 @@ from tekken_tpu_torch.ops.stage1 import (  # noqa: E402
     stage1_compact, stage1_compact_reference, stage1_fused,
     stage1_fused_reference)
 from tekken_tpu_torch.special_tokens import (  # noqa: E402
-    SpecialTokenPolicy, get_deprecated_special_tokens)
+    SpecialTokenInfo, SpecialTokenPolicy, get_deprecated_special_tokens)
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -96,6 +113,11 @@ N_SPECIAL = 1000
 # vocabulary; the route-2/3 batches and the parity cases take B_SIDE rows
 N_WORDS, INNER_VOCAB = 40_000, 130_872
 B_MAIN, B_SIDE, ROW, LONG_ROW = 4096, 1024, 2048, 1 << 16
+# path D's corpus batch; path E's clips: 32 of 30 s for the mel
+# spectrogram, 16 of 10 s at 44.1 kHz for the resampler
+B_CORPUS = 1024
+SAMPLE_RATE, N_MEL_CLIPS, MEL_SECONDS = 16_000, 32, 30
+N_RES_CLIPS, RES_SECONDS, RES_RATE = 16, 10, 44_100
 
 KERNELS = {
     "stage1_compact": ("tekken_tpu_torch/csrc/stage1_compact.cu",
@@ -223,17 +245,24 @@ def route3_batch(words, rng, B, R):
 
 def configuration():
     """The full-width configuration from seed 1234: (corpus words, the
-    tokenizer on the card)."""
+    tokenizer on the card), with V7's audio constants (16 kHz, 12.5
+    frames/s, 80 mels, hop 160, window 400) and its two audio specials."""
     rng = random.Random(1234)
     words = ["".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
                      for _ in range(rng.randint(2, 11)))
              for _ in range(N_WORDS)]
     vocab = build_bench_vocab(words, INNER_VOCAB)
+    specials = get_deprecated_special_tokens()
+    specials += [SpecialTokenInfo(rank=len(specials) + k, token_str=s,
+                                  is_control=True)
+                 for k, s in enumerate(("[AUDIO]", "[BEGIN_AUDIO]"))]
+    audio = tt.AudioConfig(SAMPLE_RATE, 12.5,
+                           tt.AudioSpectrogramConfig(80, 160, 400))
     return words, tt.Tekkenizer(
-        vocab=vocab, special_tokens=get_deprecated_special_tokens(),
+        vocab=vocab, special_tokens=specials,
         pattern=".*", vocab_size=len(vocab) + N_SPECIAL,
         num_special_tokens=N_SPECIAL, version=tt.TokenizerVersion.V7,
-        device="cuda")
+        audio_config=audio, device="cuda")
 
 
 def traffic(words, ranks):
@@ -345,11 +374,12 @@ def decode_bound_ms(n_tokens, total, out_cap):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def median_s(fn, reps=5):
+def median_s(fn, reps=5, warm=True):
     """(median, min, max) host seconds of fn() over reps calls after one
-    warm-up, each ended by a synchronize."""
-    fn()
-    torch.cuda.synchronize()
+    warm-up (``warm``), each ended by a synchronize."""
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -451,6 +481,361 @@ def one_launch_a_call(what, counts, merge_calls):
                              f"for {len(merge_calls)} bucket merge calls")
 
 
+def mb_per_s(what, nbytes, fn):
+    """Log and return the median-of-5 end-to-end rate of fn(), which the
+    caller has just run once (the warm-up)."""
+    e2e, lo_, hi_ = median_s(fn, warm=False)
+    log(f"{what}: end to end median of 5 {e2e * 1e3:.1f} ms (min "
+        f"{lo_ * 1e3:.1f}, max {hi_ * 1e3:.1f}) = {nbytes / e2e / 1e6:.2f} "
+        f"MB/s")
+    return {"e2e_s": e2e, "e2e_MB_per_s": nbytes / e2e / 1e6,
+            "e2e_min_max_s": [lo_, hi_]}
+
+
+# --------------------------------------------------------------------- #
+# paths C-E: the data-parallel encode, the corpus stream, audio
+# --------------------------------------------------------------------- #
+
+def path_c(tok, batches, routed_out, flat_out):
+    """DistributedEncoder on an NCCL process group of one rank (cuda:0):
+    encode_batch in both merge modes against the routed encode_batch and
+    the oracle, and the unrouted encode_step against the flat path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tekken_tpu_torch.parallel.encode import DistributedEncoder
+    from tekken_tpu_torch.parallel.mesh import make_dp_mesh
+
+    ranks = tok.ranks
+    res = {}
+    with tempfile.TemporaryDirectory() as pg_dir:
+        dist.init_process_group("nccl", init_method=f"file://{pg_dir}/pg",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_dp_mesh()
+            if (dist.get_backend(mesh.group) != "nccl" or mesh.size != 1
+                    or mesh.device != torch.device("cuda", 0)):
+                raise AssertionError(f"dp mesh {mesh}")
+            for merge, names in (("device", ("route1_bench",
+                                             "mixed_1pct_utf8")),
+                                 ("host", ("route1_bench",))):
+                denc = DistributedEncoder(tok, mesh=mesh, rows=B_MAIN,
+                                          row_len=ROW, merge=merge)
+                for name in names:
+                    what = f"[dp] merge={merge} {name}"
+                    texts = batches[name]
+                    nbytes = sum(len(t.encode("utf-8")) for t in texts)
+                    with Capture(packed_mod, "stage1_compact") as c1, \
+                            Capture(packed_mod, "merge_buckets") as c2:
+                        _build.reset_launches()
+                        docs, n_bytes, n_tokens = denc.encode_batch(texts)
+                        torch.cuda.synchronize()
+                        counts = dict(_build.LAUNCHES)
+                    one_launch_a_call(what, counts, c2.calls)
+                    if (not c1.calls
+                            or counts["stage1_compact"] != len(c1.calls)
+                            or len(c2.calls) > len(c1.calls)
+                            or (merge == "host") != (not c2.calls)):
+                        raise AssertionError(f"{what}: launches {counts} for "
+                                             f"{len(c1.calls)} encode calls")
+                    want = routed_out[name]
+                    for i, (a, b) in enumerate(zip(docs, want)):
+                        if [r + N_SPECIAL for r in a] != b:
+                            raise AssertionError(f"{what}: doc {i} differs "
+                                                 f"from encode_batch")
+                    if len(docs) != len(want):
+                        raise AssertionError(f"{what}: {len(docs)} docs")
+                    for i in random.Random(3).sample(range(len(texts)), 64):
+                        if docs[i] != encode_ranks(texts[i], ranks):
+                            raise AssertionError(f"{what}: doc {i} differs "
+                                                 f"from the oracle")
+                    if (n_bytes, n_tokens) != (nbytes,
+                                               sum(len(d) for d in docs)):
+                        raise AssertionError(f"{what}: counters {n_bytes} "
+                                             f"{n_tokens}")
+                    log(f"{what}: {len(texts)} docs, {nbytes} bytes, "
+                        f"{n_tokens} tokens in {len(c1.calls)} encode calls; "
+                        f"launches {counts}; overflow rows "
+                        f"{denc.last_overflow_rows}; every doc equals "
+                        f"encode_batch, 64-doc oracle sample identical")
+                    res[f"dp_{merge}_{name}"] = {
+                        "bytes": nbytes, "launches": counts,
+                        **mb_per_s(what, nbytes,
+                                   lambda: denc.encode_batch(texts))}
+                    gather_docs = docs
+
+            # encode_batch's one collective that carries data, alone: the
+            # gather of the route-1 batch's docs
+            parts = [None]
+            g_s, g_lo, g_hi = median_s(lambda: dist.all_gather_object(
+                parts, (gather_docs, False), group=mesh.group))
+            log(f"[dp] all_gather_object of the route-1 batch's "
+                f"{len(gather_docs)} docs: median of 5 {g_s * 1e3:.1f} ms "
+                f"(min {g_lo * 1e3:.1f}, max {g_hi * 1e3:.1f})")
+            res["dp_all_gather_route1_bench"] = {
+                "e2e_s": g_s, "e2e_min_max_s": [g_lo, g_hi]}
+
+            # the unrouted step through encode_step(route=None)
+            denc = DistributedEncoder(tok, mesh=mesh, rows=B_MAIN,
+                                      row_len=ROW)
+            texts = batches["route1_bench"]
+            nbytes = sum(len(t.encode("utf-8")) for t in texts)
+            buf, lens = denc._pack(texts, B_MAIN)
+            _build.reset_launches()
+            docs, n_bytes, _ = denc._encode_buffer(buf, lens, len(texts),
+                                                   None)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            if (counts["stage1_fused"] != 1 or counts["stage1_compact"]
+                    or counts["merge_rows"] != 1):
+                raise AssertionError(f"[dp] route=None: launches {counts}")
+            if docs != flat_out["route1_bench"] or n_bytes != nbytes:
+                raise AssertionError("[dp] route=None: the docs differ from "
+                                     "the flat path's")
+            log(f"[dp] encode_step(route=None) route1_bench: launches "
+                f"{counts}; every doc equals the flat path's")
+            res["dp_flat_route1_bench"] = {
+                "bytes": nbytes, "launches": counts,
+                **mb_per_s("[dp] route=None route1_bench", nbytes,
+                           lambda: denc._encode_buffer(buf, lens, len(texts),
+                                                       None))}
+        finally:
+            dist.destroy_process_group()
+
+    # host-merge mode's stages on the route-1 batch, through PackedEncoder
+    texts = batches["route1_bench"]
+    henc = packed_mod.PackedEncoder(tok, rows=B_MAIN, row_len=ROW,
+                                    device=DEV, merge="host")
+    stages = clocked_stages(
+        lambda clock: henc.encode_batch(texts, clock=clock), reps=3)
+    log(f"[dp] PackedEncoder(merge='host') route1_bench: "
+        f"{henc.stats['fb_spans']} fb spans, {henc.stats['overflow_rows']} "
+        f"overflow rows; stages ms (median of 3 clocked calls) "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    res["host_merge_route1_bench"] = {"fb_spans": henc.stats["fb_spans"],
+                                      "stages_ms": stages}
+    return res
+
+
+def path_d(tok, words, batches):
+    """CorpusEncoder.encode_files_to_jsonl over 4 shard files: the route-1
+    batch's docs and 8 docs of 3-5 rows, which run as piece-safe
+    segments."""
+    import tempfile
+
+    from tekken_tpu_torch.parallel.corpus import CorpusEncoder
+
+    rng = random.Random(41)
+    big = []
+    for k in range(8):
+        ws = build_corpus(words, rng, 1, (3 + k % 3) * ROW)[0].split(" ")
+        for i in range(0, len(ws), 7):   # whitespace runs: unsafe cuts
+            ws[i] += rng.choice(("  ", "\t", " \t "))
+        big.append(" ".join(ws))
+    docs = list(batches["route1_bench"])
+    for k, d in enumerate(big):
+        docs.insert(rng.randrange(len(docs) + 1), d)
+    nbytes = sum(len(d.encode("utf-8")) for d in docs)
+    with tempfile.TemporaryDirectory() as root:
+        shards = []
+        per = -(-len(docs) // 4)
+        for s in range(4):
+            path = f"{root}/shard{s}.txt"
+            with open(path, "w", encoding="utf-8") as f:
+                f.write("\n".join(docs[s * per:(s + 1) * per]) + "\n")
+            shards.append(path)
+        cenc = CorpusEncoder(tok, rows=B_CORPUS, row_len=ROW)
+        with Capture(packed_mod, "merge_buckets") as c2:
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            stats = cenc.encode_files_to_jsonl(shards, f"{root}/out.jsonl")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(_build.LAUNCHES)
+        with open(f"{root}/out.jsonl", encoding="utf-8") as f:
+            lines = f.read().splitlines()
+    one_launch_a_call("[corpus]", counts, c2.calls)
+    if not counts["stage1_compact"] or not counts["merge_rows"]:
+        raise AssertionError(f"[corpus] launches {counts}")
+    if len(lines) != len(docs):
+        raise AssertionError(f"[corpus] {len(lines)} lines for {len(docs)} "
+                             f"docs")
+    check = [docs.index(d) for d in big]
+    check += random.Random(4).sample(range(len(docs)), 64)
+    for i in check:
+        if json.loads(lines[i]) != tok.encode(docs[i], False, False):
+            raise AssertionError(f"[corpus] line {i} differs from encode")
+    n_tokens = sum(len(json.loads(ln)) for ln in lines)
+    want = {"documents": len(docs), "oversized_documents": len(big),
+            "bytes": nbytes, "tokens": n_tokens}
+    if {k: stats[k] for k in want} != want:
+        raise AssertionError(f"[corpus] stats {stats}, expected {want}")
+    log(f"[corpus] {len(shards)} shards, {len(docs)} docs ({len(big)} of 3-5 "
+        f"rows), {nbytes} bytes, {n_tokens} tokens; launches {counts}; the "
+        f"oversize docs and 64 sampled lines equal Tekkenizer.encode; stats "
+        f"{json.dumps(stats)}")
+    log(f"[corpus] end to end {wall * 1e3:.1f} ms = {nbytes / wall / 1e6:.2f} "
+        f"MB/s (one call)")
+    return {"corpus": {"bytes": nbytes, "tokens": n_tokens,
+                       "launches": counts, "e2e_s": wall,
+                       "e2e_MB_per_s": nbytes / wall / 1e6, "stats": stats}}
+
+
+def tones(g, n, rate, n_samples):
+    """n clips of three random tones and noise, float32."""
+    t = np.arange(n_samples) / rate
+    f = g.uniform(80, 4000, (n, 3))
+    x = sum(0.2 * np.sin(2 * np.pi * f[:, k, None] * t) for k in range(3))
+    return (x + 0.05 * g.standard_normal((n, n_samples))).astype(np.float32)
+
+
+def mel_reference(x, cfg, rate):
+    """float64 numpy mel power and whisper log-mel: reflect pad, periodic
+    Hann frames, |rfft|^2 without the last frame, the Slaney bank."""
+    win, hop = cfg.window_size, cfg.hop_length
+    xp = np.pad(x.astype(np.float64), ((0, 0), (win // 2, win // 2)),
+                mode="reflect")
+    n_frames = x.shape[1] // hop + 1
+    frames = np.lib.stride_tricks.sliding_window_view(
+        xp, win, axis=-1)[:, ::hop][:, :n_frames]
+    w = 0.5 * (1 - np.cos(2 * np.pi * np.arange(win) / win))
+    spec = np.abs(np.fft.rfft(frames * w, axis=-1)) ** 2
+    mel = spec[:, :-1] @ tt.mel_filter_bank(win // 2 + 1, cfg.num_mel_bins,
+                                           0.0, rate / 2, rate)
+    lm = np.log10(np.maximum(mel, 1e-10))
+    lm = np.maximum(lm, lm.max(axis=(1, 2), keepdims=True) - 8.0)
+    return mel, (lm + 4.0) / 4.0
+
+
+def audio_tokens(n, rate, cfg):
+    """The [BEGIN_AUDIO] + [AUDIO] count of an n-sample clip at ``rate``
+    (the reference's frame math, src/audio.rs:555-591)."""
+    if rate != cfg.sampling_rate:
+        n = -(-n * cfg.sampling_rate // rate)
+    n = max(n, cfg.audio_encoding_config.window_size)
+    hop = cfg.audio_encoding_config.hop_length
+    frames = n // hop if n % hop == 0 else int(np.ceil(n / hop - 1.0))
+    return 1 + int(np.ceil(frames / cfg.audio_length_per_tok()))
+
+
+def resample_refs():
+    """Path E's clips for the batched resampler, and the host resampler's
+    output for clips 0-1 (numpy FFTs of 2^27 points, ~10 s each) started
+    in two spawned processes: (clips, executor, futures).  Started at the
+    top of the run, they overlap the builds and the configuration."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from tekken_tpu_torch.ops.resample import resample_poly_host
+
+    x = tones(np.random.default_rng(2025), N_RES_CLIPS, RES_RATE,
+              RES_RATE * RES_SECONDS)
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+        "spawn"))
+    return x, pool, [pool.submit(resample_poly_host, x[i], RES_RATE,
+                                 SAMPLE_RATE) for i in range(2)]
+
+
+def path_e(tok, x_res, want):
+    """Audio on the card: the log and linear mel spectrograms of 32 clips
+    of 30 s against float64, the batched resampler on 16 clips of 10 s at
+    44.1 kHz against the host resampler's output ``want`` for clips 0-1
+    (``resample_refs``), and encode_audio_batch."""
+    from tekken_tpu_torch.ops.resample import resample_poly_batched
+
+    cfg = tok.audio_config()
+    spec_cfg = cfg.audio_encoding_config
+    enc = tok._audio_encoder
+    g = np.random.default_rng(2024)
+    res = {}
+    x = tones(g, N_MEL_CLIPS, SAMPLE_RATE, SAMPLE_RATE * MEL_SECONDS)
+    xg = torch.from_numpy(x).to(DEV)
+    logmel = enc.mel_spectrogram(xg)
+    lin = enc.mel_spectrogram(xg, log=False)
+    torch.cuda.synchronize()
+    want_lin, want_log = mel_reference(x, spec_cfg, SAMPLE_RATE)
+    n_frames = SAMPLE_RATE * MEL_SECONDS // spec_cfg.hop_length
+    shape = (N_MEL_CLIPS, n_frames, spec_cfg.num_mel_bins)
+    if tuple(logmel.shape) != shape or tuple(lin.shape) != shape:
+        raise AssertionError(f"[audio] mel shapes {tuple(logmel.shape)} "
+                             f"{tuple(lin.shape)}, expected {shape}")
+    lin = lin.cpu().numpy().astype(np.float64)
+    logmel = logmel.cpu().numpy().astype(np.float64)
+    peak = want_lin.max(axis=(1, 2), keepdims=True)
+    # linear: rtol 1e-4 plus 1e-6 of the clip's peak; log: atol 1e-4
+    lin_err = np.abs(lin - want_lin)
+    if not np.all(lin_err <= 1e-4 * np.abs(want_lin) + 1e-6 * peak):
+        raise AssertionError("[audio] the mel power is outside its "
+                             "tolerance")
+    log_err = float(np.abs(logmel - want_log).max())
+    if not log_err <= 1e-4:
+        raise AssertionError(f"[audio] log-mel max abs err {log_err}")
+    mel_ms = cuda_ms(lambda: enc.mel_spectrogram(xg), 5)
+    lin_ms = cuda_ms(lambda: enc.mel_spectrogram(xg, log=False), 5)
+    log(f"[audio] mel_spectrogram {shape} of {N_MEL_CLIPS} x "
+        f"{MEL_SECONDS} s: max abs err {log_err:.3g} log-mel (atol 1e-4),"
+        f" {float((lin_err / peak).max()):.3g} of the peak linear (rtol "
+        f"1e-4 + 1e-6 of the peak) against float64; {mel_ms:.3f} ms log,"
+        f" {lin_ms:.3f} ms linear")
+    res["mel"] = {"shape": shape, "log_max_abs_err": log_err,
+                  "ms_log": mel_ms, "ms_linear": lin_ms}
+
+    xr = torch.from_numpy(x_res).to(DEV)
+    y = resample_poly_batched(xr, RES_RATE, SAMPLE_RATE)
+    torch.cuda.synchronize()
+    n_out = -(-x_res.shape[1] * SAMPLE_RATE // RES_RATE)
+    if tuple(y.shape) != (N_RES_CLIPS, n_out):
+        raise AssertionError(f"[audio] resample shape {tuple(y.shape)}")
+    res_ms = cuda_ms(lambda: resample_poly_batched(xr, RES_RATE,
+                                                   SAMPLE_RATE), 3)
+    y = y.cpu().numpy()
+    res_err = max(float(np.abs(y[i] - w).max()) for i, w in enumerate(want))
+    if not res_err <= 2e-4:
+        raise AssertionError(f"[audio] resample max abs err {res_err}")
+    log(f"[audio] resample_poly_batched {N_RES_CLIPS} x {RES_SECONDS} s "
+        f"{RES_RATE} -> {SAMPLE_RATE} Hz: {res_ms:.3f} ms; clips 0-1 max abs "
+        f"err {res_err:.3g} against resample_poly_host (atol 2e-4)")
+    res["resample"] = {"clips": N_RES_CLIPS, "seconds": RES_SECONDS,
+                       "max_abs_err": res_err, "ms": res_ms}
+
+    # encode_audio_batch: 16 clips at 16 kHz of 1-30 s, lengths off the
+    # hop too; 16 at 44.1 kHz of 0.05-0.25 s, resampled on the host
+    lens = [SAMPLE_RATE * int(g.integers(1, 31)) + int(g.integers(0, 2)) *
+            int(g.integers(1, 160)) for _ in range(16)]
+    lens44 = [int(g.integers(RES_RATE // 20, RES_RATE // 4))
+              for _ in range(16)]
+    audios = [tt.Audio.new(tones(g, 1, SAMPLE_RATE, n)[0], SAMPLE_RATE)
+              for n in lens]
+    audios += [tt.Audio.new(tones(g, 1, RES_RATE, n)[0], RES_RATE)
+               for n in lens44]
+    clip44 = audios[16].audio_array.copy()
+    t0 = time.perf_counter()
+    encs = tok.encode_audio_batch(audios)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    begin = tok.get_control_token("[BEGIN_AUDIO]")
+    audio_id = tok.get_control_token("[AUDIO]")
+    for i, (e, n) in enumerate(zip(encs, lens + lens44)):
+        rate = SAMPLE_RATE if i < 16 else RES_RATE
+        if (e.tokens[0] != begin or set(e.tokens[1:]) != {audio_id}
+                or len(e.tokens) != audio_tokens(n, rate, cfg)
+                or e.audio.sampling_rate != SAMPLE_RATE):
+            raise AssertionError(f"[audio] encode_audio_batch clip {i}: "
+                                 f"{len(e.tokens)} tokens")
+    on_card = resample_poly_batched(clip44[None], RES_RATE, SAMPLE_RATE,
+                                    device=DEV)
+    err44 = float(np.abs(on_card[0].cpu().numpy()
+                         - encs[16].audio.audio_array).max())
+    if not err44 <= 2e-4:
+        raise AssertionError(f"[audio] host vs card resample err {err44}")
+    n_tok = sum(len(e.tokens) for e in encs)
+    log(f"[audio] encode_audio_batch of 32 clips (16 at {RES_RATE} Hz): "
+        f"{n_tok} tokens, [BEGIN_AUDIO] + [AUDIO] x n as the frame math "
+        f"gives; {enc_ms:.1f} ms (host resample and frame math)")
+    res["encode_audio_batch"] = {"clips": 32, "tokens": n_tok, "ms": enc_ms}
+    return res
+
+
 # --------------------------------------------------------------------- #
 
 def main():
@@ -463,6 +848,7 @@ def main():
     log(f"[card] {smi}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()}")
+    res_refs = resample_refs()
 
     # ---- 1. build the kernels in parallel ----
     t0 = time.perf_counter()
@@ -587,6 +973,14 @@ def main():
         log(f"[parity] decode_store T=65536 n_tokens={n_tok} sw4={dec._sw4}:"
             f" all {cap_} bytes identical, total {int(got[1])}")
 
+    # the host resampler's references end before the timed paths start
+    t0 = time.perf_counter()
+    x_res, pool, futs = res_refs
+    res_want = [f.result() for f in futs]
+    pool.shutdown()
+    log(f"[audio] host resampler references for path E ready, "
+        f"{time.perf_counter() - t0:.1f} s waited")
+
     # ---- 4. the main path ----
     launches = {k: 0 for k in _build.LAUNCHES}
     captured = {}
@@ -646,6 +1040,7 @@ def main():
 
     # ---- path B: the unrouted flat encode ----
     flat_calls = {}
+    flat_out = {}
     flat_launches = {k: 0 for k in _build.LAUNCHES}
     for name in ("route1_bench", "route2", "route3"):
         texts = batches[name]
@@ -663,6 +1058,7 @@ def main():
             torch.cuda.synchronize()
             counts = dict(_build.LAUNCHES)
         flat_calls[name] = (c1.calls, c2.calls)
+        flat_out[name] = out
         one_launch_a_call(f"flat {name}", counts, c2.calls)
         for k, v in counts.items():
             flat_launches[k] += v
@@ -741,6 +1137,15 @@ def main():
     log(f"[decode] route1_bench: end to end median of 5 {d_e2e * 1e3:.1f} ms "
         f"(min {d_lo * 1e3:.1f}, max {d_hi * 1e3:.1f}) = "
         f"{out_bytes / d_e2e / 1e6:.2f} MB/s")
+
+    # ---- paths C-E: data-parallel encode, corpus stream, audio ----
+    for name, run in (("C", lambda: path_c(tok, batches, routed_out,
+                                            flat_out)),
+                      ("D", lambda: path_d(tok, words, batches)),
+                      ("E", lambda: path_e(tok, x_res, res_want))):
+        t0 = time.perf_counter()
+        results.update(run())
+        log(f"[path {name}] {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. the kernels at the main path's own inputs ----
     # stage 1 at every launch of the routed encode path, each with its bound

@@ -4,9 +4,21 @@ The port of the JAX package ``tekken_tpu``, which stays beside it as the
 reference.  This package imports torch and never jax, and nothing of the
 JAX package.  Its batched encode and decode run on the GPU with kernels
 written by hand for Hopper (``csrc/``, built with nvcc at first use); on
-CPU tensors the same functions run their plain PyTorch versions.
+CPU tensors the same functions run their plain PyTorch versions.  The
+data-parallel layer (``parallel/``) shards document rows over the ranks
+of a ``torch.distributed`` process group.
 """
 
+from .audio import (
+    Audio,
+    AudioConfig,
+    AudioEncoder,
+    AudioEncoding,
+    AudioSpectrogramConfig,
+    hertz_to_mel,
+    mel_filter_bank,
+    mel_to_hertz,
+)
 from .config import ModelData, TekkenConfig, TokenInfo, TokenizerVersion
 from .errors import (
     AudioError,
@@ -24,6 +36,9 @@ from .special_tokens import SpecialTokenInfo, SpecialTokenPolicy, SpecialTokens
 from .tekkenizer import Tekkenizer
 
 __all__ = [
+    "Audio", "AudioConfig", "AudioEncoder", "AudioEncoding",
+    "AudioSpectrogramConfig", "hertz_to_mel", "mel_filter_bank",
+    "mel_to_hertz",
     "AudioError", "Base64Error", "InvalidConfigError", "IoError",
     "JsonError", "ModelData", "SpecialTokenInfo", "SpecialTokenPolicy",
     "SpecialTokenPolicyError", "SpecialTokens", "TekkenConfig",

@@ -30,6 +30,11 @@ in plain torch otherwise), every byte position probes the word map, and
 the misses of 2-4, 5-8 and > 8 bytes go to the P=4, P=8 and P=32 merge
 buckets (there is no P23 tier).
 
+In host-merge mode (``host_merge=True``, both paths) the device stops
+after the emission of singles and hits: every vocab miss is recorded as
+a (start, length) span and no merge kernel runs; the host merges and
+splices the spans.
+
 The JAX package picks its branches and tiers with ``lax.cond``; here each
 predicate and count is read once to the host and the same branch or tier
 is taken in Python, so every capacity (and with it ``overflow`` and
@@ -106,7 +111,7 @@ def _tier(count: int, tiers) -> int:
 
 def packed_encode(byts, lengths, tables, route: int | None,
                   np_cap: int | None = None, fb_len_limit: int = P_SHORT,
-                  clock=None):
+                  clock=None, host_merge: bool = False):
     """Encode a (B, R) uint8 buffer of document rows with a host-chosen
     route (1 simple ASCII / 2 general ASCII / 3 UTF-8) or, with ``route``
     None, on the unrouted flat path, which picks the rules on the device.
@@ -118,7 +123,12 @@ def packed_encode(byts, lengths, tables, route: int | None,
     the host merges and splices — (NP32,) on the routed pipeline, (NPT,)
     on the flat path; overflow (int) nonzero when a bucket overflowed;
     row_bad int32 (B,) the rows holding dropped pieces, which the host
-    re-encodes."""
+    re-encodes.
+
+    With ``host_merge`` the device only emits singles and whole-piece hits
+    and records EVERY vocab miss as a span, (NP,) of them, for the host to
+    merge (no merge kernel runs, ``fb_len_limit`` plays no part); overflow
+    is set when the misses outnumber NP."""
     if route not in (None, 1, 2, 3):
         raise ValueError(f"route must be None, 1, 2 or 3, got {route!r}")
     if not 1 <= fb_len_limit <= P_LANES:
@@ -127,9 +137,31 @@ def packed_encode(byts, lengths, tables, route: int | None,
     N = B * R
     NP = np_cap if np_cap is not None else max(64, N // 16)
     if route is None:
-        return _flat_encode(byts, lengths, tables, NP, fb_len_limit, clock)
+        return _flat_encode(byts, lengths, tables, NP, fb_len_limit, clock,
+                            host_merge)
     return _compact_encode(byts, lengths, tables, NP, route, fb_len_limit,
-                           clock)
+                           clock, host_merge)
+
+
+def _host_spans(tok, miss, start, plen, NP: int, row_of, B: int):
+    """Host-merge mode's tail, shared by both paths: number the misses
+    (``miss``, flat, in byte order) and record the first NP as (start,
+    length) spans; a miss past NP sets overflow and flags its row."""
+    i64 = torch.int64
+    dev = tok.device
+    N = tok.shape[0] - 1
+    fb_id = torch.cumsum(miss.to(i64), 0) - 1
+    n_miss = int(miss.sum())
+    keep = miss & (fb_id < NP)
+    fb_start = torch.full((NP,), -1, dtype=torch.int32, device=dev)
+    fb_len = torch.zeros(NP, dtype=torch.int32, device=dev)
+    fb_start[fb_id[keep]] = start[keep].to(torch.int32)
+    fb_len[fb_id[keep]] = plen[keep].to(torch.int32)
+    row_bad = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+    row_bad[torch.where(miss & (fb_id >= NP), row_of, B)] = 1
+    tok = tok[:N]
+    n_out = (tok >= 0).sum(dtype=torch.int32)
+    return tok, n_out, fb_start, fb_len, int(n_miss > NP), row_bad[:B]
 
 
 def _flat_stage1(byts, lengths, n_words, wsize, wseed, clock):
@@ -159,7 +191,8 @@ def _flat_stage1(byts, lengths, n_words, wsize, wseed, clock):
     return tuple(to_i32(x) for x in planes)
 
 
-def _flat_encode(byts, lengths, tables, NP: int, fb_len_limit: int, clock):
+def _flat_encode(byts, lengths, tables, NP: int, fb_len_limit: int, clock,
+                 host_merge: bool = False):
     """The unrouted flat path (the JAX package's ``packed_encode_impl``
     with ``route=None``)."""
     B, R = byts.shape
@@ -203,10 +236,14 @@ def _flat_encode(byts, lengths, tables, NP: int, fb_len_limit: int, clock):
     # singles and whole-piece hits emit at their start byte; slot N drops
     tok = torch.cat([torch.where(single, byte_rank, found).to(torch.int32),
                      torch.full((1,), -1, dtype=torch.int32, device=dev)])
+    mp_mark = multi & ~hit_start
+    if host_merge:
+        out = _host_spans(tok, mp_mark, idx, plen, NP, idx // R, B)
+        _mark(clock, "probe_emit", dev)
+        return out
 
     # --- bucket build: misses of 2-4 / 5-8 / > 8 bytes to the P=4 / P=8 /
     # P=32 buckets, disjoint row ranges of one table ---
-    mp_mark = multi & ~hit_start
     tiny = mp_mark & (plen <= 4)
     short = mp_mark & (plen > 4) & (plen <= P_SHORT)
     long_ = mp_mark & (plen > P_SHORT)
@@ -256,7 +293,7 @@ def _flat_encode(byts, lengths, tables, NP: int, fb_len_limit: int, clock):
 
 
 def _compact_encode(byts, lengths, tables, NP: int, route: int,
-                    fb_len_limit: int, clock):
+                    fb_len_limit: int, clock, host_merge: bool = False):
     B, R = byts.shape
     N = B * R
     dev = byts.device
@@ -328,6 +365,10 @@ def _compact_encode(byts, lengths, tables, NP: int, route: int,
     src = tokv.reshape(-1)
     tok = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
     tok[torch.where(src >= 0, pos, N)] = src
+    if host_merge:
+        out = _host_spans(tok, miss.reshape(-1), pos, plf, NP, pos // R, B)
+        _mark(clock, "probe_emit", dev)
+        return out
 
     # --- bucket build: 2-3-byte misses go to the P23 tier, 4 / 5-8 / > 8
     # byte misses to the P=4 / P=8 / P=32 merge buckets ---
@@ -549,12 +590,21 @@ class PackedEncoder:
     runs in a power-of-two sub-batch of its own, so one UTF-8 doc does not
     send a whole batch down the slower route.
 
+    ``merge="device"`` (default) merges misses on the device in the
+    length buckets; ``merge="host"`` has the device record every miss as
+    a span, which the host merges (the oracle's byte_pair_merge) and
+    splices.
+
     ``stats`` holds counts of the last ``encode_batch``: the rows
     re-encoded on the host after a bucket overflow and the spans merged
     and spliced on the host."""
 
     def __init__(self, tokenizer, rows: int = 64, row_len: int = 1024,
-                 np_cap: int | None = None, device="cuda"):
+                 np_cap: int | None = None, device="cuda",
+                 merge: str = "device"):
+        if merge not in ("host", "device"):
+            raise ValueError(f"merge must be 'host' or 'device': {merge!r}")
+        self._host_merge = merge == "host"
         self._tables = tokenizer.device_tables(device)
         self._device = self._tables.device
         self._B = rows
@@ -624,7 +674,8 @@ class PackedEncoder:
         lens = torch.from_numpy(lengths).to(dev)
         _mark(clock, "upload", dev)
         tok, _, fb_start, fb_len, overflow, row_bad = packed_encode(
-            byts, lens, self._tables, route, np_cap, clock=clock)
+            byts, lens, self._tables, route, np_cap, clock=clock,
+            host_merge=self._host_merge)
         tok = tok.cpu().numpy()
         fb_start = fb_start.cpu().numpy()
         fb_len = fb_len.cpu().numpy()

@@ -13,7 +13,9 @@ engine ranks are shifted up by ``num_special_tokens``.
 ``encode`` and ``decode`` run on the host (the oracle); ``encode_batch``
 runs the packed pipeline and ``decode_batch`` the device decoder on
 ``device`` ("cuda" unless the caller asks for "cpu"), and both raise on
-any failure: there is no host fallback.
+any failure: there is no host fallback.  ``encode_audio`` does the
+reference's frame math on the host (src/tekkenizer.rs:728-735); the
+audio encoder's mel spectrogram runs on ``device``.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .audio import AudioConfig
+from .audio import Audio, AudioConfig, AudioEncoder, AudioEncoding
 from .config import ModelData, TokenInfo, TokenizerVersion, parse_version
 from .errors import (
+    AudioError,
     InvalidConfigError,
     SpecialTokenPolicyError,
     TokenizersError,
@@ -39,8 +42,18 @@ from .special_tokens import (
 )
 from .vocab import CuckooPairTable, DecodeTable, WordDirectMap, reload_mergeable_ranks
 
-# buffers of more bytes than this are refused by encode_batch
+# the most bytes one packed buffer of encode_batch holds: larger batches
+# run as several row sub-batches, and a doc longer than an 8-row buffer's
+# row (MAX_BATCH_BYTES / 8) is refused
 MAX_BATCH_BYTES = 1 << 24
+
+
+def _pow2(n: int, lo: int) -> int:
+    """The smallest power-of-two multiple of ``lo`` that is >= n."""
+    b = lo
+    while b < n:
+        b <<= 1
+    return b
 
 
 class Tekkenizer:
@@ -97,11 +110,22 @@ class Tekkenizer:
             else:
                 vocab_strings.append("<?>")
 
+        # audio wiring (reference: src/tekkenizer.rs:157-178)
+        audio_encoder = None
         if audio_config is not None:
-            if SpecialTokens.AUDIO.as_str() not in self._special_tokens_map:
+            audio_id = self._special_tokens_map.get(SpecialTokens.AUDIO.as_str())
+            if audio_id is None:
                 raise TokenNotFoundError("Audio token not found")
-            if SpecialTokens.BEGIN_AUDIO.as_str() not in self._special_tokens_map:
+            begin_audio_id = self._special_tokens_map.get(
+                SpecialTokens.BEGIN_AUDIO.as_str())
+            if begin_audio_id is None:
                 raise TokenNotFoundError("BeginAudio token not found")
+            audio_encoder = AudioEncoder(
+                config=audio_config,
+                audio_token_id=audio_id,
+                begin_audio_token_id=begin_audio_id,
+                device=device,
+            )
 
         self._ranks = ranks
         self._vocab_size = vocab_size
@@ -110,6 +134,7 @@ class Tekkenizer:
         self._special_tokens = all_special
         self._vocab_strings = vocab_strings
         self._audio_config = audio_config
+        self._audio_encoder = audio_encoder
         self._device = device
         self._cuckoo_table: Optional[CuckooPairTable] = None
         self._word_map: Optional[WordDirectMap] = None
@@ -215,18 +240,40 @@ class Tekkenizer:
         clock=None,
     ) -> list[list[int]]:
         """Batched encode on the device through the packed pipeline, in
-        power-of-two shape buckets (rows >= 8, row length >= 256).  Raises
-        ValueError when the buffer would exceed MAX_BATCH_BYTES.
-        ``clock`` (an ops.packed.StageClock, measurement only) records the
-        wall time of each pipeline stage."""
-        enc = self._get_packed_encoder(texts)
-        rank_lists = enc.encode_batch(texts, clock=clock)
-        self._last_batch_stats = dict(enc.stats)
+        power-of-two shape buckets (rows >= 8, row length >= 256).  A batch
+        whose buffer would exceed MAX_BATCH_BYTES runs as consecutive row
+        sub-batches that each fit; a doc longer than MAX_BATCH_BYTES / 8
+        bytes raises ValueError.  ``clock`` (an ops.packed.StageClock,
+        measurement only) records the wall time of each pipeline stage."""
+        stats = {"overflow_rows": 0, "fb_spans": 0}
+        rank_lists: list[list[int]] = []
+        for sub in self._row_batches(texts):
+            enc = self._get_packed_encoder(sub)
+            rank_lists += enc.encode_batch(sub, clock=clock)
+            for k in stats:
+                stats[k] += enc.stats[k]
+        self._last_batch_stats = stats
         out = [self._with_specials(r, add_beginning_of_sequence,
                                    add_end_of_sequence) for r in rank_lists]
         if clock is not None:
             clock.mark("public_ids")
         return out
+
+    @staticmethod
+    def _row_batches(texts):
+        """``texts`` in consecutive sub-batches whose packed buffers each
+        hold at most MAX_BATCH_BYTES (one sub-batch when the whole batch
+        fits)."""
+        max_len = max((len(t.encode("utf-8")) for t in texts), default=1)
+        row_len = _pow2(max_len, 256)
+        if 8 * row_len > MAX_BATCH_BYTES:
+            raise ValueError(
+                f"a doc of {max_len} bytes needs rows of {row_len} bytes; "
+                f"8 of them exceed {MAX_BATCH_BYTES} bytes")
+        rows = MAX_BATCH_BYTES // row_len
+        if len(texts) <= rows:
+            return [texts]
+        return [texts[i:i + rows] for i in range(0, len(texts), rows)]
 
     @property
     def last_batch_stats(self) -> dict:
@@ -235,21 +282,13 @@ class Tekkenizer:
         return self._last_batch_stats
 
     def _get_packed_encoder(self, texts):
+        """The packed encoder of the batch's shape bucket (the batch fits
+        MAX_BATCH_BYTES: ``_row_batches`` splits it first)."""
         from .ops.packed import PackedEncoder
 
-        def pow2(n, lo):
-            b = lo
-            while b < n:
-                b <<= 1
-            return b
-
         max_len = max((len(t.encode("utf-8")) for t in texts), default=1)
-        rows = pow2(max(1, len(texts)), 8)
-        row_len = pow2(max_len, 256)
-        if rows * row_len > MAX_BATCH_BYTES:
-            raise ValueError(
-                f"batch buffer of {rows} x {row_len} = {rows * row_len} bytes "
-                f"exceeds {MAX_BATCH_BYTES}; split the batch")
+        rows = _pow2(max(1, len(texts)), 8)
+        row_len = _pow2(max_len, 256)
         key = (rows, row_len)
         enc = self._packed_encoders.get(key)
         if enc is None:
@@ -476,18 +515,19 @@ class Tekkenizer:
     # audio
     # ------------------------------------------------------------------ #
 
-    def encode_audio(self, audio):
-        raise NotImplementedError(
-            "audio encode is ported with the audio slice (ROADMAP.md, "
-            "queue 1: 'Audio device ops')")
+    def encode_audio(self, audio: Audio) -> AudioEncoding:
+        """(reference: src/tekkenizer.rs:728-735)"""
+        if self._audio_encoder is None:
+            raise AudioError("Audio encoder not configured")
+        return self._audio_encoder.encode(audio)
 
-    def encode_audio_batch(self, audios):
-        raise NotImplementedError(
-            "audio encode is ported with the audio slice (ROADMAP.md, "
-            "queue 1: 'Audio device ops')")
+    def encode_audio_batch(self, audios: Sequence[Audio]) -> list[AudioEncoding]:
+        if self._audio_encoder is None:
+            raise AudioError("Audio encoder not configured")
+        return self._audio_encoder.encode_batch(list(audios))
 
     def has_audio_support(self) -> bool:
-        return self._audio_config is not None
+        return self._audio_encoder is not None
 
     def audio_config(self) -> Optional[AudioConfig]:
         return self._audio_config

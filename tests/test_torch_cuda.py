@@ -419,3 +419,65 @@ def test_encode_batch_on_the_card(dev, tok):
     assert _build.LAUNCHES["merge_rows"] >= 1
     for s, g in zip(texts, got):
         assert g == [r + 100 for r in encode_ranks(s, t.ranks)], s
+
+
+def test_host_merge_and_world1_encode_on_the_card(dev, tok):
+    """Host-merge mode launches stage 1 and no merge; a world-of-one
+    DistributedEncoder on the card; both equal the oracle."""
+    from tekken_tpu_torch.ops.packed import PackedEncoder
+    from tekken_tpu_torch.parallel.encode import DistributedEncoder
+    from tekken_tpu_torch.parallel.mesh import make_dp_mesh
+
+    t, words = tok
+    rng = random.Random(12)
+    texts = [" ".join(rng.choice(words) if rng.random() < 0.9 else "".join(
+        rng.choice(string.ascii_lowercase) for _ in range(rng.randint(4, 14)))
+        for _ in range(60)) for _ in range(30)] + ["café 中文 \U0001f600", ""]
+    want = [encode_ranks(s, t.ranks) for s in texts]
+    enc = PackedEncoder(t, rows=32, row_len=1024, device="cuda",
+                        merge="host")
+    _build.reset_launches()
+    assert enc.encode_batch(texts) == want
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["stage1_compact"] >= 2
+    assert _build.LAUNCHES["merge_rows"] == 0
+    for merge in ("device", "host"):
+        denc = DistributedEncoder(t, mesh=make_dp_mesh(), rows=32,
+                                  row_len=1024, merge=merge)
+        assert denc.mesh.device == torch.device("cuda", 0)
+        docs, n_bytes, n_tokens = denc.encode_batch(texts)
+        assert docs == want
+        assert n_bytes == sum(len(s.encode()) for s in texts)
+        assert n_tokens == sum(len(d) for d in want)
+
+
+def test_mel_on_the_card_matches_cpu(dev):
+    """cuFFT and the card's float32 matmul (TF32 off) against the CPU
+    versions: rtol 1e-4 on the power (plus 1e-6 of its peak), atol 1e-4
+    on the log-mel."""
+    from tekken_tpu_torch.ops.mel import mel_spectrogram, stft_power
+
+    g = np.random.default_rng(9)
+    x = (g.standard_normal((4, 48000)) * 0.2).astype(np.float32)
+    got = stft_power(x, 400, 160, device=dev).cpu().numpy()
+    want = stft_power(x, 400, 160, device="cpu").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-6 * float(want.max()))
+    cfg = tt.AudioSpectrogramConfig(80, 160, 400)
+    got = mel_spectrogram(x, cfg, 16000, device=dev)
+    assert got.device.type == "cuda"
+    want = mel_spectrogram(x, cfg, 16000, device="cpu")
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("orig", [44100, 8000, 24000])
+def test_resample_on_the_card_matches_cpu(dev, orig):
+    from tekken_tpu_torch.ops.resample import resample_poly_batched
+
+    g = np.random.default_rng(10)
+    x = (g.standard_normal((3, orig)) * 0.3).astype(np.float32)
+    got = resample_poly_batched(x, orig, 16000, device=dev)
+    want = resample_poly_batched(x, orig, 16000, device="cpu")
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=2e-5)

@@ -63,11 +63,42 @@ def test_errors_and_unported_surface(merged_tokenizer):
         port.decode_batch([[port.bos_id()]], SpecialTokenPolicy.RAISE)
     with pytest.raises(tt.TokenizersError, match="Invalid token id"):
         port.decode_batch([[port.vocab_size() + 1]], SpecialTokenPolicy.KEEP)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.encode_audio(None)
-    # an over-size batch is refused with its size, never served elsewhere
-    with pytest.raises(ValueError, match="16777216|exceeds"):
-        port.encode_batch(["x" * 70000] * 300)
+    # no audio config: encode_audio raises as the JAX package's does
+    with pytest.raises(tt.AudioError, match="not configured"):
+        port.encode_audio(tt.Audio.new([0.0] * 100, 16000))
+    # a doc longer than an 8-row buffer's row (2 MiB) is refused with its
+    # size, never served elsewhere
+    with pytest.raises(ValueError, match="16777216"):
+        port.encode_batch(["x" * ((1 << 21) + 1)])
+
+
+def test_oversize_batch_splits_into_row_batches(merged_tokenizer,
+                                                monkeypatch):
+    """A batch whose buffer would exceed MAX_BATCH_BYTES (here patched to
+    4096) runs as consecutive row sub-batches on the device, and returns
+    what the JAX package returns for a batch over its cap: the oracle's
+    ids, in input order."""
+    import tekken_tpu_torch.tekkenizer as ttk
+    from tekken_tpu.oracle import encode_ranks
+
+    port = _port(merged_tokenizer)
+    monkeypatch.setattr(ttk, "MAX_BATCH_BYTES", 4096)
+    texts = [((t + " ") * (i % 7 + 1))[:120]
+             for i, t in enumerate(TEXTS * 4)]
+    texts.append("y" * 512)
+    assert max(len(t.encode()) for t in texts) == 512   # 8-row sub-batches
+    shapes = []
+    real = port._get_packed_encoder
+    monkeypatch.setattr(port, "_get_packed_encoder",
+                        lambda sub: shapes.append(len(sub)) or real(sub))
+    got = port.encode_batch(texts, True, True)
+    ns = merged_tokenizer.num_special_tokens()
+    want = [[port.bos_id()] + [r + ns for r in encode_ranks(t, port.ranks)]
+            + [port.eos_id()] for t in texts]
+    assert got == want
+    assert shapes == [8, 8, 8, 1]
+    with pytest.raises(ValueError, match="4096"):
+        port.encode_batch(["z" * 513])
 
 
 def test_port_imports_no_jax():
