@@ -11,8 +11,9 @@ Phases:
 1. the card's name and power limit; path E's host resampler references
    start in two spawned processes (they end before phase 4, so the timed
    paths have the host to themselves); nvcc builds of the four kernels, in
-   parallel, and a check that ptxas gives the merge kernel's 4- and
-   8-lane instantiations no stack frame;
+   parallel, beside the g++ build of the native engine (timed), and a
+   check that ptxas gives the merge kernel's 4- and 8-lane instantiations
+   no stack frame;
 2. the full-width configuration: 130,872 inner ranks + 1,000 specials
    from prefix chains over 40,000 random words (bench.py's builders,
    copied here), and its device tables;
@@ -45,9 +46,9 @@ Phases:
    one launch; MB/s is the median of 5 calls after a warm-up;
    path C, parallel.DistributedEncoder (4096 x 2048) on an NCCL process
    group of one rank on cuda:0: encode_batch on the route-1 and mixed
-   batches, and with merge="host" on the route-1 batch (no merge launch),
-   every doc held against encode_batch's and 64 against the oracle, and
-   the unrouted encode_step on the route-1 batch held against path B;
+   batches, every doc held against encode_batch's and 64 against the
+   oracle, and the unrouted encode_step on the route-1 batch held against
+   path B;
    path D, parallel.CorpusEncoder (1024 x 2048) writing JSONL from 4 shard
    files of the route-1 docs and 8 docs of 3-5 rows (piece-safe
    segments), the oversize docs and 64 lines held against
@@ -55,8 +56,21 @@ Phases:
    the log and linear mel spectrograms of 32 clips of 30 s against a
    float64 numpy reference (log-mel atol 1e-4; power rtol 1e-4 plus 1e-6
    of the clip's peak), resample_poly_batched of 16 clips of 10 s from
-   44.1 to 16 kHz against resample_poly_host on two of them (atol 2e-4),
-   and encode_audio_batch of 32 clips, 16 of them at 44.1 kHz;
+   44.1 to 16 kHz against resample_poly_host on the first 2 s of two of
+   them (atol 2e-4), and encode_audio_batch of 32 clips, 16 of them at
+   44.1 kHz; path F, the native engine: NativeEncoder.encode and
+   encode_batch against the oracle on 64 docs of each batch and
+   encode_batch of the route-1 batch against the card's (timed);
+   PackedEncoder(merge="host") on the route-1 batch (no merge launch)
+   with merge_spans held against the oracle's merge on every span, its
+   stages and rate beside one clocked call with the oracle's merge;
+   DistributedEncoder(merge="host") on the route-1 batch; a ~3 MiB doc
+   through encode_batch on the card against NativeEncoder.encode; the
+   card's decode bytes of the route-1 rank stream against decode_ranks,
+   both timed; ``python -m tekken_tpu_torch`` (``__main__.main``) on the
+   bench model saved to a file: encode-file with the device and native
+   engines over 512 lines, info and validate; the synthetic tokenizer
+   (200 merges) on the card at (8, 128) against the oracle;
 5. the kernels at the paths' own inputs: time, plain time, bound, and one
    JSON line ``{"kernels": [...]}`` for all four.  stage1_compact is timed
    at each of its launches on the routed encode path (one ``[kernel]``
@@ -74,11 +88,14 @@ non-zero before printing anything.
 """
 
 import base64
+import contextlib
 import json
+import os
 import random
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -89,6 +106,7 @@ if not torch.cuda.is_available():
 
 import tekken_tpu_torch as tt  # noqa: E402
 from tekken_tpu_torch import _build  # noqa: E402
+from tekken_tpu_torch.native import build as native_build  # noqa: E402
 from tekken_tpu_torch.oracle import encode_ranks  # noqa: E402
 from tekken_tpu_torch.ops import decode as decode_mod  # noqa: E402
 from tekken_tpu_torch.ops import packed as packed_mod  # noqa: E402
@@ -118,6 +136,10 @@ B_MAIN, B_SIDE, ROW, LONG_ROW = 4096, 1024, 2048, 1 << 16
 B_CORPUS = 1024
 SAMPLE_RATE, N_MEL_CLIPS, MEL_SECONDS = 16_000, 32, 30
 N_RES_CLIPS, RES_SECONDS, RES_RATE = 16, 10, 44_100
+# the host resampler's references: the first REF_SECONDS of clips 0-1; the
+# batched output agrees with them up to REF_MARGIN output samples before
+# their end (the filter reaches 32 output samples across)
+REF_SECONDS, REF_MARGIN = 2, 64
 
 KERNELS = {
     "stage1_compact": ("tekken_tpu_torch/csrc/stage1_compact.cu",
@@ -496,19 +518,16 @@ def mb_per_s(what, nbytes, fn):
 # paths C-E: the data-parallel encode, the corpus stream, audio
 # --------------------------------------------------------------------- #
 
-def path_c(tok, batches, routed_out, flat_out):
-    """DistributedEncoder on an NCCL process group of one rank (cuda:0):
-    encode_batch in both merge modes against the routed encode_batch and
-    the oracle, and the unrouted encode_step against the flat path."""
+@contextlib.contextmanager
+def world_of_one():
+    """An NCCL process group of one rank (a ``file://`` store in a
+    temporary directory) and its data-parallel mesh on cuda:0."""
     import tempfile
 
     import torch.distributed as dist
 
-    from tekken_tpu_torch.parallel.encode import DistributedEncoder
     from tekken_tpu_torch.parallel.mesh import make_dp_mesh
 
-    ranks = tok.ranks
-    res = {}
     with tempfile.TemporaryDirectory() as pg_dir:
         dist.init_process_group("nccl", init_method=f"file://{pg_dir}/pg",
                                 rank=0, world_size=1)
@@ -517,104 +536,113 @@ def path_c(tok, batches, routed_out, flat_out):
             if (dist.get_backend(mesh.group) != "nccl" or mesh.size != 1
                     or mesh.device != torch.device("cuda", 0)):
                 raise AssertionError(f"dp mesh {mesh}")
-            for merge, names in (("device", ("route1_bench",
-                                             "mixed_1pct_utf8")),
-                                 ("host", ("route1_bench",))):
-                denc = DistributedEncoder(tok, mesh=mesh, rows=B_MAIN,
-                                          row_len=ROW, merge=merge)
-                for name in names:
-                    what = f"[dp] merge={merge} {name}"
-                    texts = batches[name]
-                    nbytes = sum(len(t.encode("utf-8")) for t in texts)
-                    with Capture(packed_mod, "stage1_compact") as c1, \
-                            Capture(packed_mod, "merge_buckets") as c2:
-                        _build.reset_launches()
-                        docs, n_bytes, n_tokens = denc.encode_batch(texts)
-                        torch.cuda.synchronize()
-                        counts = dict(_build.LAUNCHES)
-                    one_launch_a_call(what, counts, c2.calls)
-                    if (not c1.calls
-                            or counts["stage1_compact"] != len(c1.calls)
-                            or len(c2.calls) > len(c1.calls)
-                            or (merge == "host") != (not c2.calls)):
-                        raise AssertionError(f"{what}: launches {counts} for "
-                                             f"{len(c1.calls)} encode calls")
-                    want = routed_out[name]
-                    for i, (a, b) in enumerate(zip(docs, want)):
-                        if [r + N_SPECIAL for r in a] != b:
-                            raise AssertionError(f"{what}: doc {i} differs "
-                                                 f"from encode_batch")
-                    if len(docs) != len(want):
-                        raise AssertionError(f"{what}: {len(docs)} docs")
-                    for i in random.Random(3).sample(range(len(texts)), 64):
-                        if docs[i] != encode_ranks(texts[i], ranks):
-                            raise AssertionError(f"{what}: doc {i} differs "
-                                                 f"from the oracle")
-                    if (n_bytes, n_tokens) != (nbytes,
-                                               sum(len(d) for d in docs)):
-                        raise AssertionError(f"{what}: counters {n_bytes} "
-                                             f"{n_tokens}")
-                    log(f"{what}: {len(texts)} docs, {nbytes} bytes, "
-                        f"{n_tokens} tokens in {len(c1.calls)} encode calls; "
-                        f"launches {counts}; overflow rows "
-                        f"{denc.last_overflow_rows}; every doc equals "
-                        f"encode_batch, 64-doc oracle sample identical")
-                    res[f"dp_{merge}_{name}"] = {
-                        "bytes": nbytes, "launches": counts,
-                        **mb_per_s(what, nbytes,
-                                   lambda: denc.encode_batch(texts))}
-                    gather_docs = docs
-
-            # encode_batch's one collective that carries data, alone: the
-            # gather of the route-1 batch's docs
-            parts = [None]
-            g_s, g_lo, g_hi = median_s(lambda: dist.all_gather_object(
-                parts, (gather_docs, False), group=mesh.group))
-            log(f"[dp] all_gather_object of the route-1 batch's "
-                f"{len(gather_docs)} docs: median of 5 {g_s * 1e3:.1f} ms "
-                f"(min {g_lo * 1e3:.1f}, max {g_hi * 1e3:.1f})")
-            res["dp_all_gather_route1_bench"] = {
-                "e2e_s": g_s, "e2e_min_max_s": [g_lo, g_hi]}
-
-            # the unrouted step through encode_step(route=None)
-            denc = DistributedEncoder(tok, mesh=mesh, rows=B_MAIN,
-                                      row_len=ROW)
-            texts = batches["route1_bench"]
-            nbytes = sum(len(t.encode("utf-8")) for t in texts)
-            buf, lens = denc._pack(texts, B_MAIN)
-            _build.reset_launches()
-            docs, n_bytes, _ = denc._encode_buffer(buf, lens, len(texts),
-                                                   None)
-            torch.cuda.synchronize()
-            counts = dict(_build.LAUNCHES)
-            if (counts["stage1_fused"] != 1 or counts["stage1_compact"]
-                    or counts["merge_rows"] != 1):
-                raise AssertionError(f"[dp] route=None: launches {counts}")
-            if docs != flat_out["route1_bench"] or n_bytes != nbytes:
-                raise AssertionError("[dp] route=None: the docs differ from "
-                                     "the flat path's")
-            log(f"[dp] encode_step(route=None) route1_bench: launches "
-                f"{counts}; every doc equals the flat path's")
-            res["dp_flat_route1_bench"] = {
-                "bytes": nbytes, "launches": counts,
-                **mb_per_s("[dp] route=None route1_bench", nbytes,
-                           lambda: denc._encode_buffer(buf, lens, len(texts),
-                                                       None))}
+            yield mesh
         finally:
             dist.destroy_process_group()
 
-    # host-merge mode's stages on the route-1 batch, through PackedEncoder
-    texts = batches["route1_bench"]
-    henc = packed_mod.PackedEncoder(tok, rows=B_MAIN, row_len=ROW,
-                                    device=DEV, merge="host")
-    stages = clocked_stages(
-        lambda clock: henc.encode_batch(texts, clock=clock), reps=3)
-    log(f"[dp] PackedEncoder(merge='host') route1_bench: "
-        f"{henc.stats['fb_spans']} fb spans, {henc.stats['overflow_rows']} "
-        f"overflow rows; stages ms (median of 3 clocked calls) "
-        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    res["host_merge_route1_bench"] = {"fb_spans": henc.stats["fb_spans"],
-                                      "stages_ms": stages}
+
+def dp_encode(tok, mesh, merge, names, batches, routed_out, res):
+    """DistributedEncoder(merge=...) encode_batch on the named batches:
+    its launches, every doc against encode_batch's, 64 against the oracle,
+    its counters, and its rate (into ``res``).  Returns the docs by
+    batch."""
+    from tekken_tpu_torch.parallel.encode import DistributedEncoder
+
+    denc = DistributedEncoder(tok, mesh=mesh, rows=B_MAIN, row_len=ROW,
+                              merge=merge)
+    # its spans merge in the native engine, in both modes
+    if denc._merge_fn != tok._get_native_encoder().merge_spans:
+        raise AssertionError(f"[dp] merge={merge}: merge_fn {denc._merge_fn}")
+    out = {}
+    for name in names:
+        what = f"[dp] merge={merge} {name}"
+        texts = batches[name]
+        nbytes = sum(len(t.encode("utf-8")) for t in texts)
+        with Capture(packed_mod, "stage1_compact") as c1, \
+                Capture(packed_mod, "merge_buckets") as c2:
+            _build.reset_launches()
+            docs, n_bytes, n_tokens = denc.encode_batch(texts)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+        one_launch_a_call(what, counts, c2.calls)
+        if (not c1.calls or counts["stage1_compact"] != len(c1.calls)
+                or len(c2.calls) > len(c1.calls)
+                or (merge == "host") != (not c2.calls)):
+            raise AssertionError(f"{what}: launches {counts} for "
+                                 f"{len(c1.calls)} encode calls")
+        want = routed_out[name]
+        for i, (a, b) in enumerate(zip(docs, want)):
+            if [r + N_SPECIAL for r in a] != b:
+                raise AssertionError(f"{what}: doc {i} differs from "
+                                     f"encode_batch")
+        if len(docs) != len(want):
+            raise AssertionError(f"{what}: {len(docs)} docs")
+        for i in random.Random(3).sample(range(len(texts)), 64):
+            if docs[i] != encode_ranks(texts[i], tok.ranks):
+                raise AssertionError(f"{what}: doc {i} differs from the "
+                                     f"oracle")
+        if (n_bytes, n_tokens) != (nbytes, sum(len(d) for d in docs)):
+            raise AssertionError(f"{what}: counters {n_bytes} {n_tokens}")
+        log(f"{what}: {len(texts)} docs, {nbytes} bytes, {n_tokens} tokens "
+            f"in {len(c1.calls)} encode calls; launches {counts}; overflow "
+            f"rows {denc.last_overflow_rows}; every doc equals encode_batch, "
+            f"64-doc oracle sample identical")
+        res[f"dp_{merge}_{name}"] = {
+            "bytes": nbytes, "launches": counts,
+            **mb_per_s(what, nbytes, lambda: denc.encode_batch(texts))}
+        out[name] = docs
+    return out
+
+
+def path_c(tok, batches, routed_out, flat_out):
+    """DistributedEncoder on an NCCL process group of one rank (cuda:0):
+    encode_batch in device-merge mode against the routed encode_batch and
+    the oracle, the gather alone, and the unrouted encode_step against the
+    flat path (host-merge mode runs in path F)."""
+    import torch.distributed as dist
+
+    from tekken_tpu_torch.parallel.encode import DistributedEncoder
+
+    res = {}
+    with world_of_one() as mesh:
+        docs = dp_encode(tok, mesh, "device", ("route1_bench",
+                                               "mixed_1pct_utf8"),
+                         batches, routed_out, res)
+
+        # encode_batch's one collective that carries data, alone: the
+        # gather of the route-1 batch's docs
+        gather_docs = docs["route1_bench"]
+        parts = [None]
+        g_s, g_lo, g_hi = median_s(lambda: dist.all_gather_object(
+            parts, (gather_docs, False), group=mesh.group))
+        log(f"[dp] all_gather_object of the route-1 batch's "
+            f"{len(gather_docs)} docs: median of 5 {g_s * 1e3:.1f} ms "
+            f"(min {g_lo * 1e3:.1f}, max {g_hi * 1e3:.1f})")
+        res["dp_all_gather_route1_bench"] = {
+            "e2e_s": g_s, "e2e_min_max_s": [g_lo, g_hi]}
+
+        # the unrouted step through encode_step(route=None)
+        denc = DistributedEncoder(tok, mesh=mesh, rows=B_MAIN, row_len=ROW)
+        texts = batches["route1_bench"]
+        nbytes = sum(len(t.encode("utf-8")) for t in texts)
+        buf, lens = denc._pack(texts, B_MAIN)
+        _build.reset_launches()
+        docs, n_bytes, _ = denc._encode_buffer(buf, lens, len(texts), None)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        if (counts["stage1_fused"] != 1 or counts["stage1_compact"]
+                or counts["merge_rows"] != 1):
+            raise AssertionError(f"[dp] route=None: launches {counts}")
+        if docs != flat_out["route1_bench"] or n_bytes != nbytes:
+            raise AssertionError("[dp] route=None: the docs differ from the "
+                                 "flat path's")
+        log(f"[dp] encode_step(route=None) route1_bench: launches {counts}; "
+            f"every doc equals the flat path's")
+        res["dp_flat_route1_bench"] = {
+            "bytes": nbytes, "launches": counts,
+            **mb_per_s("[dp] route=None route1_bench", nbytes,
+                       lambda: denc._encode_buffer(buf, lens, len(texts),
+                                                   None))}
     return res
 
 
@@ -721,9 +749,10 @@ def audio_tokens(n, rate, cfg):
 
 def resample_refs():
     """Path E's clips for the batched resampler, and the host resampler's
-    output for clips 0-1 (numpy FFTs of 2^27 points, ~10 s each) started
-    in two spawned processes: (clips, executor, futures).  Started at the
-    top of the run, they overlap the builds and the configuration."""
+    output for the first REF_SECONDS of clips 0-1 (numpy FFTs of 2^25
+    points, ~2 s each) started in two spawned processes: (clips, executor,
+    futures).  Started at the top of the run, they overlap the builds and
+    the configuration."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -733,15 +762,18 @@ def resample_refs():
               RES_RATE * RES_SECONDS)
     pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
         "spawn"))
-    return x, pool, [pool.submit(resample_poly_host, x[i], RES_RATE,
+    return x, pool, [pool.submit(resample_poly_host,
+                                 x[i, :RES_RATE * REF_SECONDS], RES_RATE,
                                  SAMPLE_RATE) for i in range(2)]
 
 
 def path_e(tok, x_res, want):
     """Audio on the card: the log and linear mel spectrograms of 32 clips
     of 30 s against float64, the batched resampler on 16 clips of 10 s at
-    44.1 kHz against the host resampler's output ``want`` for clips 0-1
-    (``resample_refs``), and encode_audio_batch."""
+    44.1 kHz and on the first REF_SECONDS of clips 0-1 against the host
+    resampler's output ``want`` for those (``resample_refs``; the 10-s
+    outputs up to REF_MARGIN samples before the references' end), and
+    encode_audio_batch."""
     from tekken_tpu_torch.ops.resample import resample_poly_batched
 
     cfg = tok.audio_config()
@@ -790,12 +822,20 @@ def path_e(tok, x_res, want):
     res_ms = cuda_ms(lambda: resample_poly_batched(xr, RES_RATE,
                                                    SAMPLE_RATE), 3)
     y = y.cpu().numpy()
-    res_err = max(float(np.abs(y[i] - w).max()) for i, w in enumerate(want))
-    if not res_err <= 2e-4:
+    keep = len(want[0]) - REF_MARGIN
+    short = resample_poly_batched(
+        torch.from_numpy(x_res[:2, :RES_RATE * REF_SECONDS]).to(DEV),
+        RES_RATE, SAMPLE_RATE).cpu().numpy()
+    res_err = max(max(float(np.abs(y[i, :keep] - w[:keep]).max()),
+                      float(np.abs(short[i] - w).max()))
+                  for i, w in enumerate(want))
+    if short.shape[1] != len(want[0]) or not res_err <= 2e-4:
         raise AssertionError(f"[audio] resample max abs err {res_err}")
     log(f"[audio] resample_poly_batched {N_RES_CLIPS} x {RES_SECONDS} s "
-        f"{RES_RATE} -> {SAMPLE_RATE} Hz: {res_ms:.3f} ms; clips 0-1 max abs "
-        f"err {res_err:.3g} against resample_poly_host (atol 2e-4)")
+        f"{RES_RATE} -> {SAMPLE_RATE} Hz: {res_ms:.3f} ms; clips 0-1 (their "
+        f"first {REF_SECONDS} s, and the first {keep} samples of their 10-s "
+        f"outputs) max abs err {res_err:.3g} against resample_poly_host "
+        f"(atol 2e-4)")
     res["resample"] = {"clips": N_RES_CLIPS, "seconds": RES_SECONDS,
                        "max_abs_err": res_err, "ms": res_ms}
 
@@ -836,6 +876,229 @@ def path_e(tok, x_res, want):
     return res
 
 
+def path_f(tok, words, batches, routed_out):
+    """The native C++ host engine (native/, built in phase 1): NativeEncoder
+    against the oracle; host-merge mode through PackedEncoder and
+    DistributedEncoder with its merge_spans; a ~3 MiB doc through
+    encode_batch; the decode bytes of the card against decode_ranks; the
+    command line; the synthetic tokenizer on the card."""
+    import io
+    import tempfile
+
+    from tekken_tpu_torch.__main__ import main as cli
+    from tekken_tpu_torch.models import build_synthetic_tokenizer
+    from tekken_tpu_torch.native import NativeEncoder
+
+    ranks = tok.ranks
+    res = {}
+    native = tok._get_native_encoder()
+    t0 = time.perf_counter()
+    NativeEncoder(tok)
+    create_s = time.perf_counter() - t0
+    if not isinstance(native, NativeEncoder):
+        raise AssertionError(f"[native] the tokenizer's host engine {native}")
+
+    # encode and encode_batch against the oracle on 64 docs a batch, and
+    # encode_batch of the whole route-1 batch against encode_batch's
+    for name, texts in batches.items():
+        sample = [texts[i] for i in
+                  random.Random(len(name) + 7).sample(range(len(texts)), 64)]
+        want = [encode_ranks(t, ranks) for t in sample]
+        if [native.encode(t) for t in sample] != want:
+            raise AssertionError(f"[native] encode {name} differs from the "
+                                 f"oracle")
+        if native.encode_batch(sample) != want:
+            raise AssertionError(f"[native] encode_batch {name} differs "
+                                 f"from the oracle")
+    texts = batches["route1_bench"]
+    nbytes = sum(len(t.encode("utf-8")) for t in texts)
+    got = native.encode_batch(texts)
+    if [[r + N_SPECIAL for r in d] for d in got] != routed_out["route1_bench"]:
+        raise AssertionError("[native] encode_batch route1_bench differs "
+                             "from the card's encode_batch")
+    log(f"[native] NativeEncoder made in {create_s:.2f} s; encode and "
+        f"encode_batch equal the oracle on 64 docs of each of "
+        f"{len(batches)} batches; encode_batch of route1_bench ({len(texts)} "
+        f"docs) equals the card's encode_batch")
+    res["native_encode_batch_route1_bench"] = {
+        "create_s": create_s,
+        **mb_per_s("[native] encode_batch route1_bench (threads: one a "
+                   "core)", nbytes, lambda: native.encode_batch(texts))}
+
+    # host-merge mode: every miss a span, merged by merge_spans
+    henc = packed_mod.PackedEncoder(tok, rows=B_MAIN, row_len=ROW,
+                                    device=DEV, merge="host")
+    if henc._merge_fn != native.merge_spans:
+        raise AssertionError(f"[native] host mode merge_fn {henc._merge_fn}")
+    with Capture(packed_mod, "splice_host_merges") as cs, \
+            Capture(packed_mod, "merge_buckets") as c2:
+        _build.reset_launches()
+        out = henc.encode_batch(texts)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+    if counts["stage1_compact"] < 1 or counts["merge_rows"] or c2.calls:
+        raise AssertionError(f"[native] host merge: launches {counts}")
+    if [[r + N_SPECIAL for r in d] for d in out] != routed_out["route1_bench"]:
+        raise AssertionError("[native] host merge: the docs differ from "
+                             "encode_batch's")
+    n_spans = 0
+    oracle_fn = packed_mod.oracle_merge_fn(ranks)
+    for (_, _, flat, fb_start, fb_len, _), _ in cs.calls:
+        sel = fb_start >= 0
+        starts, lens = fb_start[sel], fb_len[sel]
+        n_spans += int(sel.sum())
+        for a, b in zip(native.merge_spans(flat, starts, lens),
+                        oracle_fn(flat, starts, lens)):
+            if not np.array_equal(a, b):
+                raise AssertionError("[native] merge_spans differs from the "
+                                     "oracle's merge")
+    stages = clocked_stages(
+        lambda clock: henc.encode_batch(texts, clock=clock), reps=3)
+    log(f"[native] PackedEncoder(merge='host') route1_bench: launches "
+        f"{counts}; {n_spans} spans, merge_spans equal to the oracle's "
+        f"merge on all of them; every doc equals encode_batch; stages ms "
+        f"(median of 3 clocked calls) "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    host = mb_per_s("[native] host merge route1_bench", nbytes,
+                    lambda: henc.encode_batch(texts))
+    # the same encoder with the oracle's merge, in this run, for comparison
+    henc._merge_fn = oracle_fn
+    o_stages = clocked_stages(
+        lambda clock: henc.encode_batch(texts, clock=clock), reps=1)
+    o_s = sum(o_stages.values()) / 1e3
+    log(f"[native] the same with the oracle's merge (one clocked call): "
+        f"splice {o_stages['splice']:.1f} ms, all stages {o_s * 1e3:.1f} ms "
+        f"= {nbytes / o_s / 1e6:.2f} MB/s")
+    res["host_merge_route1_bench"] = {
+        "fb_spans": n_spans, "launches": counts, "stages_ms": stages, **host,
+        "oracle_merge": {"stages_ms": o_stages,
+                         "e2e_MB_per_s": nbytes / o_s / 1e6}}
+
+    # data-parallel host mode
+    with world_of_one() as mesh:
+        dp_encode(tok, mesh, "host", ("route1_bench",), batches, routed_out,
+                  res)
+
+    # one doc of ~3 MiB: cut at piece-safe points, its segments rows of
+    # one encode_batch call on the card
+    big = route1_batch(words, random.Random(77), ranks, 1, 3 << 20)[0]
+    docs = [texts[0], big, batches["route2"][0]]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = tok.encode_batch(docs)
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    if tok.engine_used != "packed-device" or counts["stage1_compact"] < 1:
+        raise AssertionError(f"[native] oversize doc: {tok.engine_used}, "
+                             f"launches {counts}")
+    for i, d in enumerate(docs):
+        if got[i] != [r + N_SPECIAL for r in native.encode(d)]:
+            raise AssertionError(f"[native] oversize batch: doc {i} differs "
+                                 f"from NativeEncoder.encode")
+    big_bytes = len(big.encode("utf-8"))
+    log(f"[native] encode_batch of a {big_bytes}-byte doc between two "
+        f"others: {len(got[1])} tokens, equal to NativeEncoder.encode; "
+        f"engine_used {tok.engine_used}; launches {counts}; one call "
+        f"{big_s * 1e3:.1f} ms")
+    res["oversize_doc"] = {"bytes": big_bytes, "tokens": len(got[1]),
+                           "launches": counts, "e2e_s": big_s}
+
+    # decode_batch's bytes on the card against decode_ranks on the host,
+    # for the route-1 batch's rank stream
+    stream = np.concatenate([np.asarray(d, np.int32) for d in
+                             routed_out["route1_bench"]]) - N_SPECIAL
+    dec = tok._get_device_decoder()
+    _build.reset_launches()
+    on_card = dec.decode_stream(stream, dec.byte_ends(stream))
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    on_host = native.decode_ranks(stream)
+    if on_card != on_host or on_host != "".join(texts).encode("utf-8"):
+        raise AssertionError("[native] decode bytes: card and decode_ranks "
+                             "differ")
+    if counts["decode_store"] < 1:
+        raise AssertionError(f"[native] decode bytes: launches {counts}")
+    card_s = median_s(lambda: dec.decode_stream(stream,
+                                                dec.byte_ends(stream)))
+    host_s = median_s(lambda: native.decode_ranks(stream))
+    log(f"[native] the bytes of {stream.size} ranks ({len(on_host)} bytes): "
+        f"the card's decode_stream {card_s[0] * 1e3:.1f} ms "
+        f"({counts['decode_store']} launches), decode_ranks "
+        f"{host_s[0] * 1e3:.1f} ms (medians of 5); equal bytes")
+    res["decode_bytes_route1_bench"] = {
+        "ranks": int(stream.size), "bytes": len(on_host),
+        "card_s": card_s, "decode_ranks_s": host_s}
+
+    # the command line, on the bench model saved to a file
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        if rc != 0:
+            raise AssertionError(f"[cli] {argv[0]}: exit code {rc}")
+        return buf.getvalue()
+
+    lines = texts[:512]
+    if any("\n" in ln for ln in lines):
+        raise AssertionError("[cli] a route-1 doc holds a newline")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        model, path = f"{root}/tekken.json", f"{root}/docs.txt"
+        tok.save(model)
+        with open(path, "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+        _build.reset_launches()
+        by_card = run(["encode-file", "--model", model, "--engine", "device",
+                       path])
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        by_native = run(["encode-file", "--model", model, "--engine",
+                         "native", path])
+        info = json.loads(run(["info", "--model", model]))
+        valid = run(["validate", "--model", model])
+    want = "".join(json.dumps(d) + "\n" for d in routed_out["route1_bench"]
+                   [:512])
+    if by_card != want or by_native != want:
+        raise AssertionError("[cli] encode-file: device and native JSONL "
+                             "differ from each other or from encode_batch")
+    if counts["stage1_compact"] < 1:
+        raise AssertionError(f"[cli] encode-file device: launches {counts}")
+    if (info["vocab_size"], info["num_special_tokens"]) != (
+            tok.vocab_size(), N_SPECIAL) or valid != "VALIDATION OK\n":
+        raise AssertionError(f"[cli] info {info}, validate {valid!r}")
+    cli_s = time.perf_counter() - t0
+    log(f"[cli] encode-file --engine device (launches {counts}) and "
+        f"--engine native over {len(lines)} route-1 lines: equal JSONL, "
+        f"equal to encode_batch; info {json.dumps(info)}; validate "
+        f"{valid.strip()}; {cli_s:.1f} s with the model file's save and "
+        f"four loads")
+    res["cli"] = {"lines": len(lines), "launches": counts, "s": cli_s}
+
+    # the synthetic tokenizer at the toy step's shape (B=8, R=128)
+    synth = build_synthetic_tokenizer(num_merges=200, num_special_tokens=20,
+                                      device="cuda")
+    samples = ["Hello, world! it's a test 123", "the quick brown fox jumps",
+               "  whitespace   handling  \n", "tokenizer encoding decoding"]
+    senc = packed_mod.PackedEncoder(synth, rows=8, row_len=128, device=DEV)
+    _build.reset_launches()
+    got = senc.encode_batch(samples)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    if got != [encode_ranks(s, synth.ranks) for s in samples] \
+            or counts["stage1_compact"] < 1:
+        raise AssertionError(f"[synthetic] encode at (8, 128) differs from "
+                             f"the oracle (launches {counts})")
+    if synth.encode_batch(samples, True, True) != [
+            synth.encode(s, True, True) for s in samples]:
+        raise AssertionError("[synthetic] encode_batch differs from encode")
+    log(f"[synthetic] build_synthetic_tokenizer(num_merges=200, "
+        f"num_special_tokens=20): {synth.vocab_size()} ids; PackedEncoder "
+        f"(8, 128) on the card equals the oracle, launches {counts}; "
+        f"encode_batch equals encode")
+    return res
+
+
 # --------------------------------------------------------------------- #
 
 def main():
@@ -850,10 +1113,19 @@ def main():
         f"devices {torch.cuda.device_count()}")
     res_refs = resample_refs()
 
-    # ---- 1. build the kernels in parallel ----
+    # ---- 1. build the kernels in parallel, and the native engine beside ----
     t0 = time.perf_counter()
-    built = _build.build()
-    log(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s")
+    native_cached = os.path.exists(native_build.lib_path())
+    with ThreadPoolExecutor(1) as pool:
+        native_fut = pool.submit(
+            lambda: (native_build.build(), time.perf_counter() - t0))
+        built = _build.build()
+        log(f"[build] {len(built)} kernels in "
+            f"{time.perf_counter() - t0:.2f} s")
+        native_lib, native_s = native_fut.result()
+    log(f"[build] native engine (g++ {' '.join(native_build.CXX_FLAGS)}): "
+        f"{native_s:.2f} s cached={native_cached} "
+        f"{os.path.relpath(native_lib)}")
     for name, info in built.items():
         log(f"[build] {name}: {info['seconds']:.2f} s "
             f"cached={info['cached']}")
@@ -885,6 +1157,8 @@ def main():
     log(f"[config] traffic built; total {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernels against their plain versions on the card ----
+    t_phase = time.perf_counter()
+
     def rows(texts, R):
         buf = np.zeros((len(texts), R), np.uint8)
         lens = np.zeros(len(texts), np.int32)
@@ -981,7 +1255,10 @@ def main():
     log(f"[audio] host resampler references for path E ready, "
         f"{time.perf_counter() - t0:.1f} s waited")
 
+    log(f"[phase 3] {time.perf_counter() - t_phase:.1f} s")
+
     # ---- 4. the main path ----
+    t_phase = time.perf_counter()
     launches = {k: 0 for k in _build.LAUNCHES}
     captured = {}
     results = {}
@@ -1038,7 +1315,10 @@ def main():
             raise AssertionError(f"kernel {k} was not launched on the "
                                  f"routed encode path")
 
+    log(f"[phase 4] {time.perf_counter() - t_phase:.1f} s")
+
     # ---- path B: the unrouted flat encode ----
+    t_phase = time.perf_counter()
     flat_calls = {}
     flat_out = {}
     flat_launches = {k: 0 for k in _build.LAUNCHES}
@@ -1097,7 +1377,10 @@ def main():
             raise AssertionError(f"kernel {k} was not launched on the flat "
                                  f"encode path")
 
+    log(f"[path B] {time.perf_counter() - t_phase:.1f} s")
+
     # ---- path A: decode_batch ----
+    t_phase = time.perf_counter()
     texts = batches["route1_bench"]
     bos, eos = tok.bos_id(), tok.eos_id()
     ids = [[bos] + x + [eos] for x in routed_out["route1_bench"]]
@@ -1138,16 +1421,22 @@ def main():
         f"(min {d_lo * 1e3:.1f}, max {d_hi * 1e3:.1f}) = "
         f"{out_bytes / d_e2e / 1e6:.2f} MB/s")
 
-    # ---- paths C-E: data-parallel encode, corpus stream, audio ----
+    log(f"[path A] {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- paths C-F: data-parallel encode, corpus stream, audio, the
+    # native engine ----
     for name, run in (("C", lambda: path_c(tok, batches, routed_out,
                                             flat_out)),
                       ("D", lambda: path_d(tok, words, batches)),
-                      ("E", lambda: path_e(tok, x_res, res_want))):
+                      ("E", lambda: path_e(tok, x_res, res_want)),
+                      ("F", lambda: path_f(tok, words, batches,
+                                           routed_out))):
         t0 = time.perf_counter()
         results.update(run())
         log(f"[path {name}] {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. the kernels at the main path's own inputs ----
+    t_phase = time.perf_counter()
     # stage 1 at every launch of the routed encode path, each with its bound
     ms1 = plain1 = bound1 = 0.0
     err1 = n1 = 0
@@ -1241,8 +1530,10 @@ def main():
     # device time
     alone3 = sum(cuda_ms(lambda: decode_mod._decode_store(*a), 20)
                  for a, _ in store_calls) / len(store_calls)
-    dev3 = sum(device_ms(lambda: decode_mod._decode_store(*a), "decode_store")
-               for a, _ in store_calls) / len(store_calls)
+    # one trace of every chunk's launch, not one trace a chunk
+    dev3 = device_ms(lambda: [decode_mod._decode_store(*a)
+                              for a, _ in store_calls],
+                     "decode_store") / len(store_calls)
     log(f"[kernel] decode_store over {k3} chunks (T={dec_calls[0][0][0].shape[0]},"
         f" sw4={dec_calls[0][0][2].shape[1]}): {tot3 / k3:.4f} ms a call of "
         f"the wrapper, {alone3:.4f} ms the launch alone, {dev3:.4f} ms of "
@@ -1276,6 +1567,7 @@ def main():
          "ms": ms4, "plain_ms": plain4, "bound_ms": bound4, "bound_by": by4,
          "library_ms": None},
     ]}
+    log(f"[phase 5] {time.perf_counter() - t_phase:.1f} s")
     log("[main] per-batch summary " + json.dumps(results))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(f"{smi}")

@@ -59,7 +59,8 @@ from .stage1 import stage1_compact, stage1_fused, stage1_planes
 
 __all__ = ["P_LANES", "P_SHORT", "PackedEncoder", "StageClock",
            "default_np_cap", "doc_routes", "host_route", "oracle_merge_fn",
-           "packed_encode", "probe2", "splice_host_merges"]
+           "packed_encode", "piece_safe_segments", "probe2",
+           "splice_host_merges"]
 
 P_LANES = 32
 P_SHORT = 8
@@ -139,6 +140,10 @@ def packed_encode(byts, lengths, tables, route: int | None,
     if route is None:
         return _flat_encode(byts, lengths, tables, NP, fb_len_limit, clock,
                             host_merge)
+    if route == 2 and R > GENERAL_MAX_ROW:
+        # ASCII rows beyond the general rules' row bound: the UTF-8 route's
+        # byte-level rules give the same flags on ASCII, for any length
+        route = 3
     return _compact_encode(byts, lengths, tables, NP, route, fb_len_limit,
                            clock, host_merge)
 
@@ -543,6 +548,77 @@ def doc_routes(buf: np.ndarray) -> np.ndarray:
     return r
 
 
+def piece_safe_segments(doc: str, budget: int) -> list[tuple[str, object]]:
+    """Split an oversize document into ('d', chunk) segments of whole
+    pre-tokenization pieces of at most ``budget`` bytes — plus ('hp',
+    [pieces]) for stretches that cannot be safely cut and ('h', piece)
+    for a lone piece larger than ``budget`` (both merged on the host, piece
+    by piece; pathological inputs only).  Tekkenizer.encode_batch and
+    CorpusEncoder.encode_stream cut their oversize docs with it.
+
+    Exactness: BPE merges never cross piece boundaries (the engine
+    encodes pieces independently, reference src/tekkenizer.rs:384).
+    Re-tokenizing a chunk is identical to the original pieces iff the
+    cut points are SAFE: a chunk may start at any piece start (the
+    pattern has no lookbehind — tokenization from a position depends
+    only on the text after it), but must END at a boundary whose
+    preceding char is NOT whitespace — the ``\\s+(?!\\S)`` lookahead
+    and the last-ws-char attach rules re-split a trailing whitespace
+    run differently at end-of-chunk (counterexample: original pieces
+    ``['\\x0c', ' ']`` re-tokenize as ``['\\x0c ']``).  The doc's own
+    end is always safe."""
+    import regex as _rx
+
+    from ..oracle import pretokenize
+
+    is_ws = _rx.compile(r"\s").match
+    out: list[tuple[str, object]] = []
+    cur: list[str] = []       # pieces of the open chunk
+    size = 0
+    last_safe = 0             # pieces of cur before the last safe cut
+    safe_size = 0
+
+    def emit_upto(k: int):
+        # flush cur[:k] as a device chunk (k > 0)
+        nonlocal cur, size, last_safe, safe_size
+        out.append(("d", "".join(cur[:k])))
+        cur = cur[k:]
+        size -= safe_size
+        last_safe, safe_size = 0, 0
+        # recompute the safe cut inside the carried-over tail
+        acc = 0
+        for j, q in enumerate(cur):
+            acc += len(q.encode("utf-8"))
+            if not is_ws(q[-1]):
+                last_safe, safe_size = j + 1, acc
+
+    pieces = pretokenize(doc)
+    for idx, p in enumerate(pieces):
+        b = len(p.encode("utf-8"))
+        if b > budget:
+            if last_safe:
+                emit_upto(last_safe)
+            if cur:
+                out.append(("hp", cur))
+                cur, size, last_safe, safe_size = [], 0, 0, 0
+            out.append(("h", p))
+            continue
+        if size + b > budget:
+            if last_safe:
+                emit_upto(last_safe)
+            if size + b > budget:
+                # still no room: no safe cut in a whole row of pieces
+                out.append(("hp", cur))
+                cur, size, last_safe, safe_size = [], 0, 0, 0
+        cur.append(p)
+        size += b
+        if not is_ws(p[-1]) or idx == len(pieces) - 1:
+            last_safe, safe_size = len(cur), size
+    if cur:
+        out.append(("d", "".join(cur)))
+    return out
+
+
 def splice_host_merges(out, out_pos, flat, fb_start, fb_len, merge_fn,
                        base: int = 0):
     """Merge the recorded miss spans on the host and splice their tokens
@@ -591,9 +667,12 @@ class PackedEncoder:
     send a whole batch down the slower route.
 
     ``merge="device"`` (default) merges misses on the device in the
-    length buckets; ``merge="host"`` has the device record every miss as
-    a span, which the host merges (the oracle's byte_pair_merge) and
-    splices.
+    length buckets (the few past the device-merge limit are merged on the
+    host by the oracle, as the JAX package does); ``merge="host"`` has the
+    device record every miss as a span, which the host merges with the
+    tokenizer's host engine (the native engine's ``merge_spans``) and
+    splices.  Rows whose pieces overflowed a bucket are re-encoded by the
+    host engine.
 
     ``stats`` holds counts of the last ``encode_batch``: the rows
     re-encoded on the host after a bucket overflow and the spans merged
@@ -611,8 +690,9 @@ class PackedEncoder:
         self._R = row_len
         self._np_cap = (np_cap if np_cap is not None
                         else default_np_cap(rows * row_len))
-        self._ranks = tokenizer.ranks
-        self._merge_fn = oracle_merge_fn(self._ranks)
+        self._tokenizer = tokenizer   # the host engine of overflow rows
+        self._merge_fn = (tokenizer._host_merge_fn() if self._host_merge
+                          else oracle_merge_fn(tokenizer.ranks))
         self.stats = {"overflow_rows": 0, "fb_spans": 0}
 
     def pack(self, texts):
@@ -664,8 +744,6 @@ class PackedEncoder:
         """Run the pipeline on one (Bg, R) buffer with a static route, or
         on the unrouted flat path for ``route`` None; splice fb spans and
         re-encode overflow rows on the host."""
-        from ..oracle import encode_ranks
-
         Bg = buf.shape[0]
         np_cap = (self._np_cap if Bg == self._B
                   else max(64, self._np_cap * Bg // self._B))
@@ -696,7 +774,8 @@ class PackedEncoder:
         for i in range(n_docs):
             if i in bad_rows:
                 data = buf[i, :lengths[i]].tobytes()
-                result.append(encode_ranks(data.decode("utf-8"), self._ranks))
+                result.append(self._tokenizer._host_ranks(
+                    data.decode("utf-8")))
             else:
                 result.append(out[cut[i]:cut[i + 1]].tolist())
         _mark(clock, "splice")

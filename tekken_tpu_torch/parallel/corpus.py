@@ -13,6 +13,7 @@ import json
 import os
 from typing import Callable, Iterable, Iterator, Optional
 
+from ..ops.packed import piece_safe_segments
 from ..utils.timing import Meter
 from .encode import DistributedEncoder
 
@@ -45,77 +46,9 @@ class CorpusEncoder:
                                        row_len=row_len)
         self._rows = rows
         self._row_len = row_len
+        self._ranks = tokenizer.ranks
         self._shift = tokenizer.num_special_tokens()
         self.meter = Meter()
-
-    def _piece_safe_segments(self, doc: str) -> list[tuple[str, object]]:
-        """Split an oversize document into ('d', chunk) segments of whole
-        pre-tokenization pieces within the row budget — plus ('hp',
-        [pieces]) for stretches that cannot be safely cut and ('h', piece)
-        for a lone piece larger than a row (both host-merged per piece;
-        pathological inputs only).
-
-        Exactness: BPE merges never cross piece boundaries (the engine
-        encodes pieces independently, reference src/tekkenizer.rs:384).
-        Re-tokenizing a chunk is identical to the original pieces iff the
-        cut points are SAFE: a chunk may start at any piece start (the
-        pattern has no lookbehind — tokenization from a position depends
-        only on the text after it), but must END at a boundary whose
-        preceding char is NOT whitespace — the ``\\s+(?!\\S)`` lookahead
-        and the last-ws-char attach rules re-split a trailing whitespace
-        run differently at end-of-chunk (counterexample: original pieces
-        ``['\\x0c', ' ']`` re-tokenize as ``['\\x0c ']``).  The doc's own
-        end is always safe."""
-        from ..oracle import pretokenize
-        import regex as _rx
-
-        is_ws = _rx.compile(r"\s").match
-        budget = self._row_len
-        out: list[tuple[str, object]] = []
-        cur: list[str] = []       # pieces of the open chunk
-        size = 0
-        last_safe = 0             # pieces of cur before the last safe cut
-        safe_size = 0
-
-        def emit_upto(k: int):
-            # flush cur[:k] as a device chunk (k > 0)
-            nonlocal cur, size, last_safe, safe_size
-            out.append(("d", "".join(cur[:k])))
-            cur = cur[k:]
-            size -= safe_size
-            last_safe, safe_size = 0, 0
-            # recompute the safe cut inside the carried-over tail
-            acc = 0
-            for j, q in enumerate(cur):
-                acc += len(q.encode("utf-8"))
-                if not is_ws(q[-1]):
-                    last_safe, safe_size = j + 1, acc
-
-        pieces = pretokenize(doc)
-        for idx, p in enumerate(pieces):
-            b = len(p.encode("utf-8"))
-            if b > budget:
-                if last_safe:
-                    emit_upto(last_safe)
-                if cur:
-                    out.append(("hp", cur))
-                    cur, size, last_safe, safe_size = [], 0, 0, 0
-                out.append(("h", p))
-                continue
-            if size + b > budget:
-                if last_safe:
-                    emit_upto(last_safe)
-                if size + b > budget:
-                    # still no room: no safe cut in a whole row of pieces
-                    out.append(("hp", cur))
-                    cur, size, last_safe, safe_size = [], 0, 0, 0
-            cur.append(p)
-            size += b
-            if not is_ws(p[-1]) or idx == len(pieces) - 1:
-                last_safe, safe_size = len(cur), size
-        if cur:
-            out.append(("d", "".join(cur)))
-        return out
 
     def encode_stream(
         self,
@@ -179,7 +112,7 @@ class CorpusEncoder:
                 segments = [("d", doc)]
             else:
                 n_oversized += 1
-                segments = self._piece_safe_segments(doc)
+                segments = piece_safe_segments(doc, self._row_len)
             plan: list[tuple[str, object]] = []
             for kind, text in segments:
                 if kind in ("h", "hp"):
@@ -189,7 +122,7 @@ class CorpusEncoder:
                         ranks = []
                         for p in group:
                             ranks.extend(byte_pair_merge(
-                                p.encode("utf-8"), self._enc._ranks))
+                                p.encode("utf-8"), self._ranks))
                     self.meter.tokens_total += len(ranks)
                     plan.append(("hr", ranks))
                 else:

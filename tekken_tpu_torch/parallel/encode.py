@@ -19,7 +19,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.packed import (default_np_cap, doc_routes, host_route,
-                          oracle_merge_fn, packed_encode, splice_host_merges)
+                          packed_encode, splice_host_merges)
 from ..tables import DeviceTables
 from .mesh import dp_sharded, make_dp_mesh, replicated
 
@@ -53,8 +53,11 @@ class DistributedEncoder:
         if merge not in ("host", "device"):
             raise ValueError(f"merge must be 'host' or 'device': {merge!r}")
         self._host_merge = merge == "host"
-        self._ranks = tokenizer.ranks
-        self._merge_fn = oracle_merge_fn(self._ranks)
+        # the host engine (native unless the tokenizer was made with
+        # native=False) merges the spans in both modes and re-encodes
+        # overflow rows
+        self._host_ranks = tokenizer._host_ranks
+        self._merge_fn = tokenizer._host_merge_fn()
         self.last_overflow_rows = 0  # all-reduced count of the last batch
 
         # copied once: the whole tables live on every rank's device
@@ -151,8 +154,6 @@ class DistributedEncoder:
         """One distributed step over a packed (Bg, R) buffer, this rank's
         host post-processing (fb splice, per-row overflow re-encode), and
         the gather of every rank's docs."""
-        from ..oracle import encode_ranks
-
         (tok, _, fb_start, fb_len, _, row_bad, total_bytes, total_tokens,
          overflow_rows) = self.encode_step(buf, lengths, route=route)
 
@@ -180,8 +181,7 @@ class DistributedEncoder:
                 # alone on the host
                 corrected = True
                 data = flat[r * self._R:r * self._R + lengths[lo + r]]
-                docs.append(encode_ranks(data.tobytes().decode("utf-8"),
-                                         self._ranks))
+                docs.append(self._host_ranks(data.tobytes().decode("utf-8")))
             else:
                 docs.append(block[cut[r]:cut[r + 1]].tolist())
 

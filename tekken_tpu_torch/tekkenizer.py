@@ -10,12 +10,15 @@ Parity surface (reference: src/tekkenizer.rs):
 Token-id spaces: special tokens sit at ``0..num_special_tokens`` and
 engine ranks are shifted up by ``num_special_tokens``.
 
-``encode`` and ``decode`` run on the host (the oracle); ``encode_batch``
-runs the packed pipeline and ``decode_batch`` the device decoder on
-``device`` ("cuda" unless the caller asks for "cpu"), and both raise on
-any failure: there is no host fallback.  ``encode_audio`` does the
-reference's frame math on the host (src/tekkenizer.rs:728-735); the
-audio encoder's mel spectrogram runs on ``device``.
+``encode`` runs on the host through the native C++ engine (native/, built
+with g++ at first use; the oracle with ``native=False``) and ``decode`` on
+the host in Python; ``encode_batch`` runs the packed pipeline and
+``decode_batch`` the device decoder on ``device`` ("cuda" unless the
+caller asks for "cpu").  Every engine raises on any failure: there is no
+quiet fallback to another.  ``engine_used`` names the engine of the last
+call.  ``encode_audio`` does the reference's frame math on the host
+(src/tekkenizer.rs:728-735); the audio encoder's mel spectrogram runs on
+``device``.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from .vocab import CuckooPairTable, DecodeTable, WordDirectMap, reload_mergeable
 
 # the most bytes one packed buffer of encode_batch holds: larger batches
 # run as several row sub-batches, and a doc longer than an 8-row buffer's
-# row (MAX_BATCH_BYTES / 8) is refused
+# row (MAX_BATCH_BYTES / 8) is cut into rows at piece-safe points
 MAX_BATCH_BYTES = 1 << 24
 
 
@@ -69,6 +72,7 @@ class Tekkenizer:
         version: TokenizerVersion,
         audio_config: Optional[AudioConfig] = None,
         device="cuda",
+        native: bool = True,
     ):
         if vocab_size > len(vocab) + num_special_tokens:
             raise InvalidConfigError(
@@ -136,6 +140,11 @@ class Tekkenizer:
         self._audio_config = audio_config
         self._audio_encoder = audio_encoder
         self._device = device
+        # the host engine: the native C++ engine, or the oracle when the
+        # caller passes native=False
+        self._native = native
+        self._native_encoder = None
+        self._last_engine: Optional[str] = None
         self._cuckoo_table: Optional[CuckooPairTable] = None
         self._word_map: Optional[WordDirectMap] = None
         self._device_tables: dict = {}
@@ -144,14 +153,16 @@ class Tekkenizer:
         self._last_batch_stats: dict = {}
 
     @classmethod
-    def from_file(cls, path, device="cuda") -> "Tekkenizer":
+    def from_file(cls, path, device="cuda",
+                  native: bool = True) -> "Tekkenizer":
         """Load from a tekken.json model file
         (reference: src/tekkenizer.rs:222-248)."""
-        return cls.from_model_data(ModelData.from_file(path), device=device)
+        return cls.from_model_data(ModelData.from_file(path), device=device,
+                                   native=native)
 
     @classmethod
-    def from_model_data(cls, model_data: ModelData,
-                        device="cuda") -> "Tekkenizer":
+    def from_model_data(cls, model_data: ModelData, device="cuda",
+                        native: bool = True) -> "Tekkenizer":
         version = parse_version(model_data.config.version)
         special_tokens = model_data.special_tokens
         if special_tokens is None:
@@ -165,6 +176,7 @@ class Tekkenizer:
             version=version,
             audio_config=model_data.audio,
             device=device,
+            native=native,
         )
 
     # ------------------------------------------------------------------ #
@@ -228,9 +240,53 @@ class Tekkenizer:
     def encode(self, text: str, add_beginning_of_sequence: bool,
                add_end_of_sequence: bool) -> list[int]:
         """Encode one string on the host (reference: src/tekkenizer.rs:378-405)."""
-        return self._with_specials(encode_ranks(text, self._ranks),
+        return self._with_specials(self._encode_ranks_host(text),
                                    add_beginning_of_sequence,
                                    add_end_of_sequence)
+
+    def _encode_ranks_host(self, text: str) -> list[int]:
+        """Engine ranks of one string by the host engine: the native C++
+        engine, or the oracle when the tokenizer was made with
+        ``native=False``."""
+        ranks = self._host_ranks(text)
+        self._last_engine = "native-host" if self._native else "host-oracle"
+        return ranks
+
+    def _host_ranks(self, text: str) -> list[int]:
+        native = self._get_native_encoder()
+        if native is not None:
+            return native.encode(text)
+        return encode_ranks(text, self._ranks)
+
+    def _host_merge_fn(self):
+        """The host's merge of pre-split pieces, as ``splice_host_merges``
+        takes it: the native engine's ``merge_spans``, or the oracle's
+        byte_pair_merge with ``native=False``."""
+        native = self._get_native_encoder()
+        if native is not None:
+            return native.merge_spans
+        from .ops.packed import oracle_merge_fn
+
+        return oracle_merge_fn(self._ranks)
+
+    def _get_native_encoder(self):
+        """The native engine (built at first use), or None when the caller
+        asked for the oracle (``native=False``).  A failed build or load
+        raises: nothing falls back to the oracle."""
+        if not self._native:
+            return None
+        if self._native_encoder is None:
+            from .native import NativeEncoder
+
+            self._native_encoder = NativeEncoder(self)
+        return self._native_encoder
+
+    @property
+    def engine_used(self) -> Optional[str]:
+        """The engine of the most recent encode or decode_batch call:
+        "packed-device", "native-host", "host-oracle" or "device-decode"
+        (None before any call)."""
+        return self._last_engine
 
     def encode_batch(
         self,
@@ -242,35 +298,80 @@ class Tekkenizer:
         """Batched encode on the device through the packed pipeline, in
         power-of-two shape buckets (rows >= 8, row length >= 256).  A batch
         whose buffer would exceed MAX_BATCH_BYTES runs as consecutive row
-        sub-batches that each fit; a doc longer than MAX_BATCH_BYTES / 8
-        bytes raises ValueError.  ``clock`` (an ops.packed.StageClock,
+        sub-batches that each fit.  A doc longer than MAX_BATCH_BYTES / 8
+        bytes is cut at piece-safe points (``ops.packed.
+        piece_safe_segments``): its segments run as rows of the same
+        sub-batches, the pieces that cannot be cut are merged on the host,
+        piece by piece (``_host_merge_fn``), and its ids are their
+        concatenation in order.  ``clock`` (an ops.packed.StageClock,
         measurement only) records the wall time of each pipeline stage."""
+        rows, plans = self._cut_oversize(texts)
         stats = {"overflow_rows": 0, "fb_spans": 0}
         rank_lists: list[list[int]] = []
-        for sub in self._row_batches(texts):
+        for sub in self._row_batches(rows):
             enc = self._get_packed_encoder(sub)
             rank_lists += enc.encode_batch(sub, clock=clock)
             for k in stats:
                 stats[k] += enc.stats[k]
         self._last_batch_stats = stats
+        self._last_engine = "packed-device"
+        if plans is not None:
+            rank_lists = [[r for part in plan for r in (
+                rank_lists[part] if isinstance(part, int) else part)]
+                for plan in plans]
         out = [self._with_specials(r, add_beginning_of_sequence,
                                    add_end_of_sequence) for r in rank_lists]
         if clock is not None:
             clock.mark("public_ids")
         return out
 
+    def _cut_oversize(self, texts):
+        """(rows, plans).  Without a doc over MAX_BATCH_BYTES / 8 bytes the
+        rows are ``texts`` and plans is None.  Otherwise each such doc is
+        cut into piece-safe segments (the plan of CorpusEncoder.
+        encode_stream): a segment that fits becomes a row, the pieces that
+        do not are merged on the host now; a doc's plan lists, in order,
+        the indices of its rows and the host-merged rank lists."""
+        budget = MAX_BATCH_BYTES // 8
+        over = [len(t.encode("utf-8")) > budget for t in texts]
+        if not any(over):
+            return texts, None
+        from .ops.packed import piece_safe_segments
+
+        rows: list[str] = []
+        plans: list[list] = []
+        for t, oversize in zip(texts, over):
+            if not oversize:
+                plans.append([len(rows)])
+                rows.append(t)
+                continue
+            plan: list = []
+            for kind, val in piece_safe_segments(t, budget):
+                if kind == "d":
+                    plan.append(len(rows))
+                    rows.append(val)
+                else:
+                    plan.append(self._merge_pieces(
+                        [val] if kind == "h" else val))
+            plans.append(plan)
+        return rows, plans
+
+    def _merge_pieces(self, pieces: list[str]) -> list[int]:
+        """The ranks of pre-tokenization pieces, each merged on its own on
+        the host, concatenated."""
+        datas = [p.encode("utf-8") for p in pieces]
+        lens = np.fromiter(map(len, datas), np.int64, len(datas))
+        buf = np.frombuffer(b"".join(datas), dtype=np.uint8)
+        toks, _ = self._host_merge_fn()(buf, np.cumsum(lens) - lens, lens)
+        return np.asarray(toks).tolist()
+
     @staticmethod
     def _row_batches(texts):
-        """``texts`` in consecutive sub-batches whose packed buffers each
-        hold at most MAX_BATCH_BYTES (one sub-batch when the whole batch
-        fits)."""
+        """``texts`` (none over MAX_BATCH_BYTES / 8 bytes) in consecutive
+        sub-batches whose packed buffers each hold at most MAX_BATCH_BYTES
+        (one sub-batch when the whole batch fits)."""
         max_len = max((len(t.encode("utf-8")) for t in texts), default=1)
-        row_len = _pow2(max_len, 256)
-        if 8 * row_len > MAX_BATCH_BYTES:
-            raise ValueError(
-                f"a doc of {max_len} bytes needs rows of {row_len} bytes; "
-                f"8 of them exceed {MAX_BATCH_BYTES} bytes")
-        rows = MAX_BATCH_BYTES // row_len
+        rows = MAX_BATCH_BYTES // _pow2(max_len, 256)
         if len(texts) <= rows:
             return [texts]
         return [texts[i:i + rows] for i in range(0, len(texts), rows)]
@@ -389,6 +490,7 @@ class Tekkenizer:
             dec = self._get_device_decoder()
             ends = dec.byte_ends(stream)
             data = dec.decode_stream(stream, ends)
+            self._last_engine = "device-decode"
             byte_cuts = np.concatenate(([0], ends))
             # rank ordinal of each batch position (exclusive count of
             # non-special tokens before it)

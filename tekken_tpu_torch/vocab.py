@@ -11,7 +11,8 @@ Turns a model file's vocab list into:
 2. ``CuckooPairTable``: (left_rank, right_rank) -> merged_rank, two-choice
    cuckoo hashed, plus the dense byte-pair table of the first merge round.
 3. ``WordDirectMap``: the word-exact single-probe whole-piece table.
-4. ``DecodeTable``: concatenated token bytes + offsets.
+4. ``PieceTable``: the native engine's whole-piece FNV-1a index.
+5. ``DecodeTable``: concatenated token bytes + offsets.
 
 The builders are copies of the JAX package's and produce identical arrays
 from the same vocab (tests/test_torch_tables.py).  ``tables.py`` moves
@@ -365,6 +366,90 @@ class WordDirectMap:
             if (int(row[k]) & 0xFFFFFFFF) != ws[k]:
                 return -1
         return meta >> 5
+
+
+def fnv1a(data: bytes, basis: int = 0x811C9DC5) -> int:
+    """Seeded FNV-1a 32-bit hash — mirrored in native/engine.cpp."""
+    h = basis
+    for b in data:
+        h = ((h ^ b) * 0x01000193) & 0xFFFFFFFF
+    return h
+
+
+@dataclass
+class PieceTable:
+    """Whole-piece bytes -> rank hash index (the native engine's fast path:
+    a piece whose bytes are a vocab token encodes as that single token
+    before any merging, as the reference's engine does).
+
+    Open addressing over a packed (size, 4) int32 array
+    [signature, length, rank, 0] (rank -1 = empty).  The signature is the
+    seeded FNV-1a hash of the token bytes, and the seed is chosen at build
+    time so that no two vocab tokens share a (signature, length) pair — a
+    signature+length match therefore identifies a unique candidate, which
+    is then byte-verified (exactness does not rest on the hash).
+    ``max_probes`` bounds the probe chains.
+    """
+
+    slots: np.ndarray       # (size, 4) int32 [sig, len, rank, 0]
+    size: int
+    basis: int
+    max_probes: int
+
+    @staticmethod
+    def _sig_i32(sig: int) -> np.int32:
+        return np.int32(sig - (1 << 32) if sig >= (1 << 31) else sig)
+
+    @classmethod
+    def build(cls, ranks: dict[bytes, int], load_factor: float = 0.5
+              ) -> "PieceTable":
+        size = max(64, _next_pow2(int(len(ranks) / load_factor) + 1))
+        mask = size - 1
+        for attempt in range(64):
+            basis = (0x811C9DC5 + attempt * 0x9E3779B9) & 0xFFFFFFFF
+            sigs = set()
+            collision = False
+            for token_bytes in ranks:
+                key = (fnv1a(token_bytes, basis), len(token_bytes))
+                if key in sigs:
+                    collision = True
+                    break
+                sigs.add(key)
+            if not collision:
+                break
+        else:
+            raise InvalidConfigError("piece table: signature seed not found")
+
+        slots = np.zeros((size, 4), dtype=np.int32)
+        slots[:, 2] = -1
+        max_probes = 1
+        for token_bytes, rank in ranks.items():
+            sig = fnv1a(token_bytes, basis)
+            s = sig & mask
+            probes = 1
+            while slots[s, 2] >= 0:
+                s = (s + 1) & mask
+                probes += 1
+            slots[s, 0] = cls._sig_i32(sig)
+            slots[s, 1] = len(token_bytes)
+            slots[s, 2] = rank
+            max_probes = max(max_probes, probes)
+        return cls(slots=slots, size=size, basis=basis, max_probes=max_probes)
+
+    def lookup_host(self, piece: bytes, decode_table: "DecodeTable") -> int:
+        mask = self.size - 1
+        sig = fnv1a(piece, self.basis)
+        sig_i = self._sig_i32(sig)
+        s = sig & mask
+        for _ in range(self.max_probes + 1):
+            if self.slots[s, 2] < 0:
+                return -1
+            if self.slots[s, 0] == sig_i and self.slots[s, 1] == len(piece):
+                # unique candidate by construction; byte-verify for exactness
+                r = int(self.slots[s, 2])
+                return r if decode_table.token_bytes(r) == piece else -1
+            s = (s + 1) & mask
+        return -1
 
 
 @dataclass

@@ -1,9 +1,11 @@
 """PyTorch port on the GPU: each CUDA kernel equals its plain PyTorch version
 bit for bit on adversarial inputs, and encode_batch on the card equals the
-oracle.  Marked ``cuda``: every test skips where torch sees no GPU.
+oracle and the native engine.  Marked ``cuda``: every test skips where
+torch sees no GPU.
 
-This file imports neither jax nor the JAX package, so it also runs on a
-machine without them:
+This file imports neither jax nor the JAX package (its tokenizers come
+from the port's own builders), so it also runs on a machine without
+them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -18,6 +20,7 @@ import torch
 
 import tekken_tpu_torch as tt
 from tekken_tpu_torch import _build
+from tekken_tpu_torch.models import build_synthetic_tokenizer
 from tekken_tpu_torch.oracle import encode_ranks
 from tekken_tpu_torch.ops.bpe import INF, merge_rows_compact
 from tekken_tpu_torch.ops.decode import (DeviceDecoder, decode_bytes_compact,
@@ -62,6 +65,13 @@ def tok():
              for r, t in enumerate(tokens)]
     return tt.Tekkenizer(vocab, [], "", len(vocab) + 100, 100,
                          tt.TokenizerVersion.V7, device="cuda"), words
+
+
+@pytest.fixture(scope="module")
+def synth():
+    """The port's synthetic BPE tokenizer (200 trained merges)."""
+    return build_synthetic_tokenizer(num_merges=200, num_special_tokens=20,
+                                     device="cuda")
 
 
 def _texts(rng, kind, n, max_len):
@@ -481,3 +491,42 @@ def test_resample_on_the_card_matches_cpu(dev, orig):
     want = resample_poly_batched(x, orig, 16000, device="cpu")
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                atol=2e-5)
+
+
+def test_synthetic_tokenizer_encode_on_the_card(dev, synth):
+    """The port's synthetic tokenizer at the toy step's shape (B=8,
+    R=128): encode_batch on the card equals the oracle and encode."""
+    texts = ["Hello, world! it's a test 123", "the quick brown fox jumps",
+             "  whitespace   handling  \n", "tokenizer encoding decoding",
+             "café 中文 \U0001f600", "", "numbers 1234567 and more", "x"]
+    _build.reset_launches()
+    got = synth.encode_batch(texts, True, True)
+    torch.cuda.synchronize()
+    assert synth.engine_used == "packed-device"
+    assert _build.LAUNCHES["stage1_compact"] >= 1
+    for t, g in zip(texts, got):
+        assert g == synth.encode(t, True, True), t
+        assert g[1:-1] == [r + 20 for r in encode_ranks(t, synth.ranks)], t
+    assert synth.engine_used == "native-host"
+
+
+def test_host_merge_with_the_native_engine_on_the_card(dev, tok):
+    """Host-mode encode_batch on the card merges every miss with the
+    native engine's merge_spans and equals NativeEncoder.encode."""
+    from tekken_tpu_torch.native import NativeEncoder
+    from tekken_tpu_torch.ops.packed import PackedEncoder
+
+    t, words = tok
+    native = NativeEncoder(t)
+    rng = random.Random(13)
+    texts = [" ".join(rng.choice(words) if rng.random() < 0.8 else "".join(
+        rng.choice(string.ascii_lowercase) for _ in range(rng.randint(4, 14)))
+        for _ in range(80)) for _ in range(60)] + ["café 中文 \U0001f600", ""]
+    enc = PackedEncoder(t, rows=64, row_len=1024, device="cuda", merge="host")
+    assert enc._merge_fn.__qualname__ == "NativeEncoder.merge_spans"
+    _build.reset_launches()
+    got = enc.encode_batch(texts)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["merge_rows"] == 0
+    assert enc.stats["fb_spans"] > 100
+    assert got == native.encode_batch(texts)

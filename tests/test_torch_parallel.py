@@ -176,6 +176,8 @@ def _rank_main(rank, tmp, world):
             docs, n_bytes, n_tokens = enc.encode_batch(texts)
             out[merge] = (step, docs, n_bytes, n_tokens,
                           enc.last_overflow_rows)
+            # the spans merge in the native engine, in both modes
+            out[merge + "_merge_fn"] = enc._merge_fn.__qualname__
         out["scaling"] = measure_scaling(port, [1, 2], rows_per_device=4,
                                          row_len=R, iters=2).summary()
         out["overhead"] = measure_dp_overhead(port, [1, 2], rows=8,
@@ -233,6 +235,7 @@ def test_two_gloo_ranks_match_jax(toks, tmp_path):
             _same_shard(step, want, s, 2)
             assert (docs, n_bytes, n_tokens) == jdocs
             assert ovf == jovf > 0
+            assert out[merge + "_merge_fn"] == "NativeEncoder.merge_spans"
         assert outs[0][merge][0][4] == 1          # rank 0's rows overflow
 
     scaling = outs[0]["scaling"]
@@ -293,16 +296,19 @@ def test_corpus_jsonl_matches_jax(toks, tmp_path):
 
 
 def test_piece_safe_segments_match_jax(merged_tokenizer):
-    """The oversize-doc splitter's segments equal the JAX package's on
+    """The oversize-doc splitter's segments (ops.packed.piece_safe_segments,
+    which CorpusEncoder and Tekkenizer.encode_batch share) equal the JAX
+    package's on
     tests/test_corpus_chunking.py's cases, whitespace-heavy ones included,
     and re-encode to the doc's exact ids."""
     from tekken_tpu.oracle import byte_pair_merge, encode_ranks
     from tekken_tpu.parallel.corpus import CorpusEncoder as JCorpus
 
+    from tekken_tpu_torch.ops.packed import piece_safe_segments
+
     ranks = merged_tokenizer.ranks
-    penc = CorpusEncoder.__new__(CorpusEncoder)
     jenc = JCorpus.__new__(JCorpus)
-    penc._row_len = jenc._row_len = 64
+    jenc._row_len = 64
     rng = random.Random(21)
     docs = [
         " ".join("word%d" % i for i in range(200)),
@@ -312,7 +318,7 @@ def test_piece_safe_segments_match_jax(merged_tokenizer):
         "".join(rng.choice(" \t\n\r\x0bab12!?ü中ſ'") for _ in range(2000)),
     ]
     for doc in docs:
-        segs = penc._piece_safe_segments(doc)
+        segs = piece_safe_segments(doc, 64)
         assert segs == jenc._piece_safe_segments(doc)
         cat = []
         for kind, val in segs:

@@ -66,10 +66,55 @@ def test_errors_and_unported_surface(merged_tokenizer):
     # no audio config: encode_audio raises as the JAX package's does
     with pytest.raises(tt.AudioError, match="not configured"):
         port.encode_audio(tt.Audio.new([0.0] * 100, 16000))
-    # a doc longer than an 8-row buffer's row (2 MiB) is refused with its
-    # size, never served elsewhere
-    with pytest.raises(ValueError, match="16777216"):
-        port.encode_batch(["x" * ((1 << 21) + 1)])
+
+
+def test_oversize_doc_matches_jax(merged_tokenizer, monkeypatch):
+    """A doc longer than an 8-row buffer's row (MAX_BATCH_BYTES / 8, here
+    patched down to 512 bytes) is cut at piece-safe points: its segments
+    run as rows of the same encode_batch call, the pieces that cannot be
+    cut are merged on the host, and the ids equal the JAX package's for
+    the same texts, BOS and EOS on.  The JAX side is its ``encode``: its
+    encode_batch gives the same ids but compiles for ~80 s on the CPU at
+    a 4096-byte row."""
+    import random
+
+    import tekken_tpu_torch.tekkenizer as ttk
+    from tekken_tpu_torch.ops.packed import piece_safe_segments
+
+    port = _port(merged_tokenizer)
+    monkeypatch.setattr(ttk, "MAX_BATCH_BYTES", 4096)
+    rng = random.Random(8)
+    words = [w for t in TEXTS for w in t.split()] + ["hello", "world"]
+    runs = ["  ", "\t", " \t ", "\n\n"]
+    prose = "".join(rng.choice(words) + (rng.choice(runs) if rng.random()
+                                          < 0.2 else " ")
+                    for _ in range(500))[:3000]
+    texts = [
+        prose,                                         # segments only
+        "one piece " + "q" * 600 + " then words",      # a 600-byte piece
+        "cut " + "!\n" * 300 + " here",                 # 600 bytes, no safe cut
+        "short doc",
+    ]
+    kinds = [{k for k, _ in piece_safe_segments(t, 512)} for t in texts[:3]]
+    assert kinds == [{"d"}, {"d", "h"}, {"d", "hp"}]
+    assert len(texts[0].encode()) >= 2900
+    got = port.encode_batch(texts, True, True)
+    assert port.engine_used == "packed-device"
+    assert got == [merged_tokenizer.encode(t, True, True) for t in texts]
+
+
+def test_general_ascii_rows_past_the_general_bound(merged_tokenizer):
+    """A general-ASCII doc (whitespace runs, long digit runs) longer than
+    the general rules' 8192-byte row bound runs on the byte-level rules of
+    the UTF-8 route, and its ids equal the JAX package's encode (the JAX
+    device path refuses such rows and serves the host engine)."""
+    port = _port(merged_tokenizer)
+    doc = ("it's  12345678 words\t\tand  runs " * 300)[:9500]
+    texts = [doc, "Hello, World!", "two  spaces"]
+    assert port.encode_batch(texts) == [merged_tokenizer.encode(t, False,
+                                                                False)
+                                        for t in texts]
+    assert port.engine_used == "packed-device"
 
 
 def test_oversize_batch_splits_into_row_batches(merged_tokenizer,
@@ -97,8 +142,23 @@ def test_oversize_batch_splits_into_row_batches(merged_tokenizer,
             + [port.eos_id()] for t in texts]
     assert got == want
     assert shapes == [8, 8, 8, 1]
-    with pytest.raises(ValueError, match="4096"):
-        port.encode_batch(["z" * 513])
+    # one 513-byte piece: no device row holds it, the host merges it
+    assert port.encode_batch(["z" * 513]) == [
+        [r + ns for r in encode_ranks("z" * 513, port.ranks)]]
+
+
+def test_exports_cover_jax():
+    """The port exports every name the JAX package exports, and its
+    version."""
+    import tekken_tpu
+
+    assert set(tekken_tpu.__all__) <= set(tt.__all__)
+    assert all(hasattr(tt, name) for name in tt.__all__)
+    assert tt.__version__ == tekken_tpu.__version__
+    assert tt.TEKKEN_PATTERN == tekken_tpu.TEKKEN_PATTERN
+    assert [(t.rank, t.token_str) for t in tt.get_deprecated_special_tokens()
+            ] == [(t.rank, t.token_str)
+                  for t in tekken_tpu.get_deprecated_special_tokens()]
 
 
 def test_port_imports_no_jax():
