@@ -15,8 +15,11 @@ Phases:
    check that ptxas gives the merge kernel's 4- and 8-lane instantiations
    no stack frame;
 2. the full-width configuration: 130,872 inner ranks + 1,000 specials
-   from prefix chains over 40,000 random words (bench.py's builders,
-   copied here), and its device tables;
+   from prefix chains over 40,000 random words
+   (``tekken_tpu_torch.models.bench``, copies of bench.py's builders;
+   checked by its rank count and a hash of its sorted token bytes), its
+   device tables, and the flat engine's tables (pair table, piece table,
+   padded token rows), each build timed;
 3. each kernel against its plain version, bit for bit, on the card:
    stage 1 with rules simple / general / external at (1024, 2048) and a
    long-row case at R = 2^16; the merge's matrix entry at P = 4, 8, 32
@@ -69,8 +72,20 @@ Phases:
    card's decode bytes of the route-1 rank stream against decode_ranks,
    both timed; ``python -m tekken_tpu_torch`` (``__main__.main``) on the
    bench model saved to a file: encode-file with the device and native
-   engines over 512 lines, info and validate; the synthetic tokenizer
-   (200 merges) on the card at (8, 128) against the oracle;
+   engines over 512 lines, info and validate; the flagship step of
+   ``graft_entry.entry()`` (the unrouted packed encode on the synthetic
+   tokenizer of 200 merges, at (8, 128)) on the card against the oracle;
+   path G, the differential engines, none of which may launch a kernel:
+   ``FlatEncoder`` (64 x 1024) on 64 docs of each of route1_bench,
+   route2 and route3 clipped to 1,024 bytes, every doc against the oracle
+   and encode_batch, launch counts zeroed before and read after (all 0),
+   its merge rounds and median time; ``probe_pairs`` on 100,000 pairs
+   against a numpy probe of the pair table; ``merge_bucket_fn(16)`` on
+   ~1,000 out-of-vocabulary pieces against ``byte_pair_merge``;
+   ``pretokenize_vec`` on the first 256 bytes of 500 docs against
+   ``oracle.pretokenize``; ``byte_boundaries_via_chars`` on the route-3
+   batch against ``byte_boundaries``; ``graft_entry.dryrun_multichip(1)``
+   in an NCCL group of one;
 5. the kernels at the paths' own inputs: time, plain time, bound, and one
    JSON line ``{"kernels": [...]}`` for all four.  stage1_compact is timed
    at each of its launches on the routed encode path (one ``[kernel]``
@@ -87,8 +102,8 @@ Any failure raises and exits non-zero.  Without a GPU the script exits
 non-zero before printing anything.
 """
 
-import base64
 import contextlib
+import hashlib
 import json
 import os
 import random
@@ -105,10 +120,13 @@ if not torch.cuda.is_available():
              "False); this script runs only on a GPU")
 
 import tekken_tpu_torch as tt  # noqa: E402
-from tekken_tpu_torch import _build  # noqa: E402
+from tekken_tpu_torch import _build, graft_entry  # noqa: E402
+from tekken_tpu_torch.models import (  # noqa: E402
+    bench_words, build_bench_vocab, build_corpus)
 from tekken_tpu_torch.native import build as native_build  # noqa: E402
 from tekken_tpu_torch.oracle import encode_ranks  # noqa: E402
 from tekken_tpu_torch.ops import decode as decode_mod  # noqa: E402
+from tekken_tpu_torch.ops import flat as flat_mod  # noqa: E402
 from tekken_tpu_torch.ops import packed as packed_mod  # noqa: E402
 from tekken_tpu_torch.ops.bpe import INF, merge_rows_compact  # noqa: E402
 from tekken_tpu_torch.ops.decode import (  # noqa: E402
@@ -128,8 +146,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 N_SPECIAL = 1000
 # the configuration's scale: bench.py's shape (B_MAIN x ROW bytes) and
-# vocabulary; the route-2/3 batches and the parity cases take B_SIDE rows
-N_WORDS, INNER_VOCAB = 40_000, 130_872
+# vocabulary (its count and the sha256 of its sorted token bytes, each
+# prefixed by its 2-byte little-endian length, as bench.py's builders give
+# them); the route-2/3 batches and the parity cases take B_SIDE rows
+INNER_VOCAB = 130_872
+VOCAB_SHA256 = ("798fb96e14e120f9c1f9b8cfd0ee4ad8"
+                "f5308a9ea822df9b91f99a664f56caf3")
 B_MAIN, B_SIDE, ROW, LONG_ROW = 4096, 1024, 2048, 1 << 16
 # path D's corpus batch; path E's clips: 32 of 30 s for the mel
 # spectrogram, 16 of 10 s at 44.1 kHz for the resampler
@@ -140,6 +162,8 @@ N_RES_CLIPS, RES_SECONDS, RES_RATE = 16, 10, 44_100
 # batched output agrees with them up to REF_MARGIN output samples before
 # their end (the filter reaches 32 output samples across)
 REF_SECONDS, REF_MARGIN = 2, 64
+# path G's time aim, seconds (its tables are built in phase 2)
+PATH_G_AIM_S = 15
 
 KERNELS = {
     "stage1_compact": ("tekken_tpu_torch/csrc/stage1_compact.cu",
@@ -161,52 +185,6 @@ def log(*a):
 
 
 # --------------------------------------------------------------------- #
-# the full-width configuration (copies of bench.py:62-108)
-# --------------------------------------------------------------------- #
-
-def build_bench_vocab(words, inner_vocab):
-    """Byte tokens + prefix-chain tokens for corpus words (each token splits
-    into (prefix, last byte)); bare and space-prefixed chains."""
-    tokens: list[bytes] = [bytes([i]) for i in range(256)]
-    seen = set(tokens)
-    full = False
-    for w in words:
-        for b in (b" " + w.encode("utf-8"), w.encode("utf-8")):
-            for k in range(2, len(b) + 1):
-                t = b[:k]
-                if t not in seen:
-                    seen.add(t)
-                    tokens.append(t)
-                if len(tokens) >= inner_vocab:
-                    full = True
-                    break
-            if full:
-                break
-        if full:
-            break
-    return [tt.TokenInfo(rank=r, token_bytes=base64.b64encode(t).decode(),
-                         token_str=None) for r, t in enumerate(tokens)]
-
-
-def build_corpus(words, rng, n_docs, doc_len):
-    docs = []
-    for _ in range(n_docs):
-        parts = []
-        size = 0
-        while size < doc_len - 16:
-            w = words[min(int(rng.paretovariate(1.1)) - 1, len(words) - 1)]
-            parts.append(w)
-            size += len(w) + 1
-            if rng.random() < 0.1:
-                parts.append(str(rng.randint(0, 999)))
-                size += 4
-            if rng.random() < 0.15:
-                parts[-1] += rng.choice(".,!?;:")
-        docs.append(" ".join(parts)[:doc_len])
-    return docs
-
-
-# --------------------------------------------------------------------- #
 # main-path traffic
 # --------------------------------------------------------------------- #
 
@@ -221,6 +199,18 @@ def oov_word(rng, ranks, lo, hi):
 
 def clip_bytes(doc, n):
     return doc.encode("utf-8")[:n].decode("utf-8", "ignore")
+
+
+def pack_rows(texts, R):
+    """(B, R) uint8 rows of the texts' first R bytes and their lengths, on
+    the card."""
+    buf = np.zeros((len(texts), R), np.uint8)
+    lens = np.zeros(len(texts), np.int32)
+    for i, t in enumerate(texts):
+        d = t.encode("utf-8")[:R]
+        buf[i, :len(d)] = np.frombuffer(d, np.uint8)
+        lens[i] = len(d)
+    return torch.from_numpy(buf).to(DEV), torch.from_numpy(lens).to(DEV)
 
 
 def route1_batch(words, rng, ranks, B, R):
@@ -269,11 +259,8 @@ def configuration():
     """The full-width configuration from seed 1234: (corpus words, the
     tokenizer on the card), with V7's audio constants (16 kHz, 12.5
     frames/s, 80 mels, hop 160, window 400) and its two audio specials."""
-    rng = random.Random(1234)
-    words = ["".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
-                     for _ in range(rng.randint(2, 11)))
-             for _ in range(N_WORDS)]
-    vocab = build_bench_vocab(words, INNER_VOCAB)
+    words = bench_words()
+    vocab = build_bench_vocab(words)
     specials = get_deprecated_special_tokens()
     specials += [SpecialTokenInfo(rank=len(specials) + k, token_str=s,
                                   is_control=True)
@@ -881,12 +868,11 @@ def path_f(tok, words, batches, routed_out):
     against the oracle; host-merge mode through PackedEncoder and
     DistributedEncoder with its merge_spans; a ~3 MiB doc through
     encode_batch; the decode bytes of the card against decode_ranks; the
-    command line; the synthetic tokenizer on the card."""
+    command line; graft_entry's flagship step on the card."""
     import io
     import tempfile
 
     from tekken_tpu_torch.__main__ import main as cli
-    from tekken_tpu_torch.models import build_synthetic_tokenizer
     from tekken_tpu_torch.native import NativeEncoder
 
     ranks = tok.ranks
@@ -1075,27 +1061,174 @@ def path_f(tok, words, batches, routed_out):
         f"four loads")
     res["cli"] = {"lines": len(lines), "launches": counts, "s": cli_s}
 
-    # the synthetic tokenizer at the toy step's shape (B=8, R=128)
-    synth = build_synthetic_tokenizer(num_merges=200, num_special_tokens=20,
-                                      device="cuda")
-    samples = ["Hello, world! it's a test 123", "the quick brown fox jumps",
-               "  whitespace   handling  \n", "tokenizer encoding decoding"]
-    senc = packed_mod.PackedEncoder(synth, rows=8, row_len=128, device=DEV)
+    # graft_entry's flagship step: the unrouted packed encode on the
+    # synthetic tokenizer at (8, 128)
+    synth = graft_entry.toy_tokenizer(DEV)
+    samples = [s.decode() for s in graft_entry.SAMPLES]
+    fn, args = graft_entry.entry(DEV)
     _build.reset_launches()
-    got = senc.encode_batch(samples)
+    tok_, n_out, fb_start, fb_len, overflow, _ = fn(*args)
     torch.cuda.synchronize()
     counts = dict(_build.LAUNCHES)
-    if got != [encode_ranks(s, synth.ranks) for s in samples] \
-            or counts["stage1_compact"] < 1:
-        raise AssertionError(f"[synthetic] encode at (8, 128) differs from "
-                             f"the oracle (launches {counts})")
+    flat = tok_.cpu().numpy()
+    pos = np.flatnonzero(flat >= 0)
+    out, pos = packed_mod.splice_host_merges(
+        flat[pos], pos, args[0].cpu().numpy().reshape(-1),
+        fb_start.cpu().numpy(), fb_len.cpu().numpy(),
+        packed_mod.oracle_merge_fn(synth.ranks))
+    got = [out[pos // 128 == i].tolist() for i in range(len(samples))]
+    if (got != [encode_ranks(s, synth.ranks) for s in samples]
+            or int(overflow) or counts["merge_rows"] != 1
+            or counts["stage1_compact"] or counts["stage1_fused"]):
+        raise AssertionError(f"[synthetic] graft_entry.entry() at (8, 128) "
+                             f"differs from the oracle (launches {counts})")
     if synth.encode_batch(samples, True, True) != [
             synth.encode(s, True, True) for s in samples]:
         raise AssertionError("[synthetic] encode_batch differs from encode")
     log(f"[synthetic] build_synthetic_tokenizer(num_merges=200, "
-        f"num_special_tokens=20): {synth.vocab_size()} ids; PackedEncoder "
-        f"(8, 128) on the card equals the oracle, launches {counts}; "
-        f"encode_batch equals encode")
+        f"num_special_tokens=20): {synth.vocab_size()} ids; "
+        f"graft_entry.entry()'s step (8, 128) on the card: n_out "
+        f"{int(n_out)}, {int((fb_start >= 0).sum())} host-merged spans, "
+        f"equals the oracle, launches {counts}; encode_batch equals encode")
+    return res
+
+
+def path_g(tok, batches):
+    """The differential engines on the card, which launch none of the four
+    kernels: FlatEncoder on 64 docs of three batches against the oracle and
+    encode_batch, probe_pairs and the bucket merge against numpy and the
+    oracle, pretokenize_vec and byte_boundaries_via_chars against the
+    oracle and byte_boundaries, and graft_entry.dryrun_multichip(1) in an
+    NCCL group of one."""
+    from tekken_tpu_torch.oracle import byte_pair_merge, pretokenize
+    from tekken_tpu_torch.ops.bpe import merge_bucket_fn, probe_pairs
+    from tekken_tpu_torch.ops.pretokenize import (byte_boundaries_via_chars,
+                                                  pretokenize_vec)
+    from tekken_tpu_torch.vocab import pair_hash
+
+    ranks = tok.ranks
+    res = {}
+
+    def no_launch(what, counts):
+        if any(counts.values()):
+            raise AssertionError(f"{what}: kernels launched {counts}")
+
+    fenc = flat_mod.FlatEncoder(tok, rows=64, row_len=1024, device=DEV)
+    for name in ("route1_bench", "route2", "route3"):
+        texts = [clip_bytes(d, 1024) for d in batches[name][:64]]
+        nbytes = sum(len(t.encode("utf-8")) for t in texts)
+        routed = tok.encode_batch(texts)
+        with Capture(flat_mod, "_seg_lexmin_suffix") as rounds:
+            _build.reset_launches()
+            got = fenc.encode_batch(texts)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+        no_launch(f"[flat engine] {name}", counts)
+        for i, (t, g) in enumerate(zip(texts, got)):
+            if g != encode_ranks(t, ranks):
+                raise AssertionError(f"[flat engine] {name}: doc {i} differs "
+                                     f"from the oracle")
+            if [r + N_SPECIAL for r in g] != routed[i]:
+                raise AssertionError(f"[flat engine] {name}: doc {i} differs "
+                                     f"from encode_batch")
+        med, lo_, hi_ = median_s(lambda: fenc.encode_batch(texts))
+        log(f"[flat engine] FlatEncoder(64, 1024) {name}: 64 docs, {nbytes} "
+            f"bytes, {sum(len(g) for g in got)} tokens in "
+            f"{len(rounds.calls)} merge rounds; launches {counts}; every doc "
+            f"equals the oracle and encode_batch; median of 5 "
+            f"{med * 1e3:.1f} ms (min {lo_ * 1e3:.1f}, max {hi_ * 1e3:.1f})")
+        res[f"flat_engine_{name}"] = {
+            "docs": 64, "bytes": nbytes, "rounds": len(rounds.calls),
+            "launches": counts, "e2e_s": med, "e2e_min_max_s": [lo_, hi_]}
+
+    # the pair table's linear probe on 100,000 pairs, half of them keys
+    pt = tok.pair_table()
+    g = np.random.default_rng(12)
+    pick = g.choice(np.flatnonzero(pt.key_left >= 0), 50_000)
+    left = np.concatenate([pt.key_left[pick], g.integers(
+        -1, len(ranks), 50_000)]).astype(np.int32)
+    right = np.concatenate([pt.key_right[pick], g.integers(
+        -1, len(ranks), 50_000)]).astype(np.int32)
+    table = [torch.from_numpy(a).to(DEV)
+             for a in (pt.key_left, pt.key_right, pt.values)]
+    _build.reset_launches()
+    got = probe_pairs(torch.from_numpy(left).to(DEV),
+                      torch.from_numpy(right).to(DEV), *table,
+                      pt.max_probes).cpu().numpy()
+    want = np.full(left.shape, INF, np.int64)
+    done = (left < 0) | (right < 0)
+    slot = pair_hash(left, right, pt.size)
+    for _ in range(pt.max_probes + 1):          # lookup_host's walk
+        kl = pt.key_left[slot]
+        hit = ~done & (kl == left) & (pt.key_right[slot] == right)
+        want[hit] = pt.values[slot[hit]]
+        done |= hit | (kl < 0)
+        slot = (slot + 1) & (pt.size - 1)
+    sample = g.choice(left.size, 1000)
+    if not np.array_equal(got, want) or any(
+            pt.lookup_host(int(left[i]), int(right[i])) != (
+                want[i] if want[i] < INF else -1)
+            for i in sample if left[i] >= 0 and right[i] >= 0):
+        raise AssertionError("[probe_pairs] differs from the pair table's "
+                             "host probe")
+
+    # the bucket merge on out-of-vocabulary pieces of 4-16 bytes
+    rng = random.Random(21)
+    pieces = [(" " + oov_word(rng, ranks, 3, 15)).encode()
+              for _ in range(1024)]
+    r0 = np.zeros((len(pieces), 16), np.int32)
+    lens = np.zeros(len(pieces), np.int32)
+    for i, p in enumerate(pieces):
+        r0[i, :len(p)] = np.frombuffer(p, np.uint8)
+        lens[i] = len(p)
+    out, n = merge_bucket_fn(16, pt.max_probes)(
+        torch.from_numpy(r0).to(DEV), torch.from_numpy(lens).to(DEV), *table)
+    out, n = out.cpu().numpy(), n.cpu().numpy()
+    for i, p in enumerate(pieces):
+        if out[i, :n[i]].tolist() != byte_pair_merge(p, ranks):
+            raise AssertionError(f"[merge_bucket_fn] piece {p!r} differs "
+                                 f"from byte_pair_merge")
+
+    # the boundary formulations
+    docs = (batches["route1_bench"][:200] + batches["route2"][:150]
+            + batches["route3"][:150])
+    t0 = time.perf_counter()
+    for d in docs:
+        d = clip_bytes(d, 256)
+        if pretokenize_vec(d, device=DEV) != pretokenize(d):
+            raise AssertionError(f"[pretokenize_vec] {d[:40]!r}... differs "
+                                 f"from oracle.pretokenize")
+    pv_s = time.perf_counter() - t0
+    b, ln = pack_rows(batches["route3"], ROW)
+    flags = byte_boundaries_via_chars(b, ln)
+    if not torch.equal(flags, byte_boundaries(b, ln)):
+        raise AssertionError("[boundaries] byte_boundaries_via_chars differs "
+                             "from byte_boundaries on route3")
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    no_launch("[probe/merge/boundaries]", counts)
+    log(f"[probe_pairs] {left.size} pairs ({int((got < INF).sum())} in the "
+        f"table, max_probes {pt.max_probes}) equal the numpy probe; "
+        f"[merge_bucket_fn] P=16 on {len(pieces)} out-of-vocabulary pieces "
+        f"of {int(lens.min())}-{int(lens.max())} bytes equals byte_pair_merge"
+        f" ({int(n.sum())} tokens); [pretokenize_vec] {len(docs)} docs of "
+        f"<= 256 bytes equal oracle.pretokenize ({pv_s:.2f} s); "
+        f"[byte_boundaries_via_chars] route3 {tuple(b.shape)}: "
+        f"{int(flags.sum())} flags, equal to byte_boundaries; launches "
+        f"{counts}")
+    res["differential_pieces"] = {
+        "probe_pairs": int(left.size), "merge_pieces": len(pieces),
+        "pretokenize_vec_docs": len(docs), "pretokenize_vec_s": pv_s,
+        "via_chars_flags": int(flags.sum())}
+
+    # graft_entry's multi-chip dryrun in an NCCL group of one
+    t0 = time.perf_counter()
+    with world_of_one():
+        dry = graft_entry.dryrun_multichip(1, device=DEV)
+    res["dryrun_multichip_1"] = {**dry, "s": time.perf_counter() - t0}
+    log(f"[graft] dryrun_multichip(1) in an NCCL group of one: {dry}; "
+        f"{res['dryrun_multichip_1']['s']:.1f} s with the bench tokenizer's "
+        f"build")
     return res
 
 
@@ -1153,20 +1286,30 @@ def main():
     log(f"[config] vocab {len(ranks)} inner ranks + {N_SPECIAL} specials "
         f"in {t1 - t0:.1f} s; device tables in {t2 - t1:.1f} s: cuckoo "
         f"{tuple(tabs.packed.shape)}, word map {tuple(tabs.word_rows.shape)}")
+    digest = hashlib.sha256()
+    for t in sorted(ranks):
+        digest.update(len(t).to_bytes(2, "little") + t)
+    log(f"[config] vocab check: {len(ranks)} ranks, sha256 of the sorted "
+        f"token bytes {digest.hexdigest()} (expected {INNER_VOCAB}, "
+        f"{VOCAB_SHA256})")
+    if (len(ranks), digest.hexdigest()) != (INNER_VOCAB, VOCAB_SHA256):
+        raise AssertionError("the bench vocabulary differs from bench.py's")
+    flat_build = {}
+    for name, build in (("pair_table", tok.pair_table),
+                        ("piece_table", tok.piece_table),
+                        ("padded_rows", tok.decode_table.padded_rows)):
+        t0_ = time.perf_counter()
+        got_ = build()
+        flat_build[name] = time.perf_counter() - t0_
+        shape = got_.shape if name == "padded_rows" else (
+            got_.key_left.shape if name == "pair_table" else got_.packed.shape)
+        log(f"[config] {name} {tuple(shape)} built in "
+            f"{flat_build[name]:.2f} s")
     batches = traffic(words, ranks)
     log(f"[config] traffic built; total {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernels against their plain versions on the card ----
     t_phase = time.perf_counter()
-
-    def rows(texts, R):
-        buf = np.zeros((len(texts), R), np.uint8)
-        lens = np.zeros(len(texts), np.int32)
-        for i, t in enumerate(texts):
-            d = t.encode("utf-8")[:R]
-            buf[i, :len(d)] = np.frombuffer(d, np.uint8)
-            lens[i] = len(d)
-        return torch.from_numpy(buf).to(DEV), torch.from_numpy(lens).to(DEV)
 
     nw_main = tabs.n_words
     wsize = tabs.word_rows.shape[0]
@@ -1174,13 +1317,13 @@ def main():
     long_utf8 = " ".join(batches["route3"][:40])
     r1 = batches["route1_bench"]
     s1_cases = [
-        ("simple", rows(r1[:B_SIDE], ROW), nw_main),
-        ("general", rows(batches["route2"], ROW), nw_main),
-        ("external", rows(batches["route3"], ROW), nw_main),
-        ("simple", rows(r1[B_SIDE:2 * B_SIDE], ROW), 6),
-        ("simple", rows([long_txt[:LONG_ROW - 7 * k] for k in range(16)],
+        ("simple", pack_rows(r1[:B_SIDE], ROW), nw_main),
+        ("general", pack_rows(batches["route2"], ROW), nw_main),
+        ("external", pack_rows(batches["route3"], ROW), nw_main),
+        ("simple", pack_rows(r1[B_SIDE:2 * B_SIDE], ROW), 6),
+        ("simple", pack_rows([long_txt[:LONG_ROW - 7 * k] for k in range(16)],
                         LONG_ROW), nw_main),
-        ("external", rows([clip_bytes(long_utf8, LONG_ROW - 5 * k)
+        ("external", pack_rows([clip_bytes(long_utf8, LONG_ROW - 5 * k)
                            for k in range(16)], LONG_ROW), nw_main),
     ]
     for rules, (b, ln), nw in s1_cases:
@@ -1219,8 +1362,8 @@ def main():
 
     long_rows = ["a" * LONG_ROW, "", "b" * (LONG_ROW - 513)] + [
         long_txt[:LONG_ROW - 7 * k - 1] for k in range(5)]
-    f_cases = [(rows(r1[:B_SIDE], ROW), nw) for nw in (0, 3, 6)]
-    f_cases.append((rows(long_rows, LONG_ROW), nw_main))
+    f_cases = [(pack_rows(r1[:B_SIDE], ROW), nw) for nw in (0, 3, 6)]
+    f_cases.append((pack_rows(long_rows, LONG_ROW), nw_main))
     for (b, ln), nw in f_cases:
         ws_, sd_ = (wsize, tabs.wseed) if nw else (1, 0)
         got = stage1_fused(b, ln, nw, ws_, sd_)
@@ -1423,17 +1566,22 @@ def main():
 
     log(f"[path A] {time.perf_counter() - t_phase:.1f} s")
 
-    # ---- paths C-F: data-parallel encode, corpus stream, audio, the
-    # native engine ----
+    # ---- paths C-G: data-parallel encode, corpus stream, audio, the
+    # native engine, the differential engines ----
     for name, run in (("C", lambda: path_c(tok, batches, routed_out,
                                             flat_out)),
                       ("D", lambda: path_d(tok, words, batches)),
                       ("E", lambda: path_e(tok, x_res, res_want)),
                       ("F", lambda: path_f(tok, words, batches,
-                                           routed_out))):
+                                           routed_out)),
+                      ("G", lambda: path_g(tok, batches))):
         t0 = time.perf_counter()
         results.update(run())
         log(f"[path {name}] {time.perf_counter() - t0:.1f} s")
+    if time.perf_counter() - t0 <= PATH_G_AIM_S:
+        log(f"[path G] within its {PATH_G_AIM_S} s aim")
+    else:
+        log(f"[path G] over its {PATH_G_AIM_S} s aim")
 
     # ---- 5. the kernels at the main path's own inputs ----
     t_phase = time.perf_counter()

@@ -6,9 +6,11 @@ this checkout — reference: .MISSING_LARGE_BLOBS) plus a synthetic small-vocab
 fixture (reference: tests/test_small_vocab.rs:7-95, examples/basic_usage.rs:56-147).
 This package recreates both: byte-level base vocabs, BPE-trained merge vocabs,
 and audio-enabled synthetic models, all emitting the exact ``tekken.json``
-schema (reference: src/config.rs:73-82).
+schema (reference: src/config.rs:73-82).  ``bench`` holds the bench
+configuration's word list, vocabulary and corpus builders.
 """
 
+from .bench import bench_words, build_bench_vocab, build_corpus
 from .synthetic import (
     build_synthetic_model_data,
     build_synthetic_tokenizer,
@@ -16,6 +18,9 @@ from .synthetic import (
 )
 
 __all__ = [
+    "bench_words",
+    "build_bench_vocab",
+    "build_corpus",
     "build_synthetic_model_data",
     "build_synthetic_tokenizer",
     "train_bpe_vocab",

@@ -1,6 +1,9 @@
 """Per-row argmin BPE merge in the compact-shift layout: the plain PyTorch
 version of the merge kernel (csrc/merge_rows.cu, wrapped by
-ops/merge.py).
+ops/merge.py).  Beside it, the differential engines' pieces: the
+linear-probe pair lookup ``probe_pairs`` (vocab.PairTable) and the
+pointer-array bucket merge ``merge_bucket_fn``, both plain PyTorch (the
+JAX package's are XLA, not Pallas).
 
 Exactness note (why not merge many pairs per piece per round): parallel
 "local minimum" merging is NOT equivalent to the reference's
@@ -16,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..vocab import RANK_LIMIT
-from .hashing import pair_slot
+from .hashing import pair_hash_slot, pair_slot
 
 INF = 2**31 - 1
 
@@ -108,3 +111,111 @@ def merge_rows_compact(rank, pr, n_seg, packed_table, seed1: int,
         while bool((state[3] < INF).any()):
             state = body(*state)
     return state[0].to(torch.int32), state[2].to(torch.int32)
+
+
+def probe_pairs(left, right, key_left, key_right, values, max_probes: int):
+    """Linear-probe pair lookup in a vocab.PairTable on the device.
+
+    left/right: int tensors of rank pairs (negative = invalid query);
+    key_left/key_right/values: the table's arrays as tensors.  Probes at
+    most ``max_probes`` slots, stopping at an exact key hit or an empty
+    slot.  Returns the merged rank (int32) or INF where the pair is absent
+    or either side is negative."""
+    size = key_left.shape[0]
+    left = left.to(torch.int64)
+    right = right.to(torch.int64)
+    slot = pair_hash_slot(left, right, size)
+    found = torch.full_like(left, INF)
+    done = torch.zeros_like(left, dtype=torch.bool)
+    for _ in range(max_probes):
+        kl = key_left[slot]
+        hit = (kl == left) & (key_right[slot] == right)
+        found = torch.where(~done & hit, values[slot].to(torch.int64), found)
+        done = done | hit | (kl < 0)
+        slot = (slot + 1) & (size - 1)
+    return torch.where((left >= 0) & (right >= 0), found,
+                       INF).to(torch.int32)
+
+
+def make_merge_bucket(P: int, max_probes: int):
+    """The per-row argmin BPE merge of a (B, P) bucket of pieces, with
+    ``nxt``/``prv`` pointer arrays (no lane shifts): each round merges the
+    lowest-rank pair of every row, the leftmost on ties (``torch.argmin``
+    returns the first minimal index), and runs while any row has a pair
+    below INF.
+
+    Returns ``merge(ranks0, lengths, key_left, key_right, values)`` ->
+    (out int32 (B, P) left-aligned and -1-padded, n_out int32 (B,)):
+    ranks0 (B, P) the pieces' byte ranks, lengths (B,), and a PairTable's
+    arrays as tensors."""
+
+    def merge(ranks0, lengths, key_left, key_right, values):
+        if ranks0.dim() != 2 or ranks0.shape[1] != P:
+            raise ValueError(f"ranks0 must be (B, {P}), got "
+                             f"{tuple(ranks0.shape)}")
+        B = ranks0.shape[0]
+        dev = ranks0.device
+        pos = torch.arange(P, dtype=torch.int64, device=dev)[None, :]
+        lens = lengths.to(torch.int64)[:, None]
+        alive = pos < lens
+
+        rank = torch.where(alive, ranks0.to(torch.int64), -1)
+        nxt = (pos + 1).expand(B, P)
+        prv = (pos - 1).expand(B, P)
+        right = torch.cat([rank[:, 1:], torch.full_like(rank[:, :1], -1)], 1)
+        pr = probe_pairs(rank, right, key_left, key_right, values,
+                         max_probes).to(torch.int64)
+        pr = torch.where(pos + 1 < lens, pr, INF)
+
+        def gather_row(arr, i, fill):
+            ok = (i >= 0) & (i < P)
+            v = torch.gather(arr, 1, i.clamp(0, P - 1)[:, None])[:, 0]
+            return torch.where(ok, v, fill)
+
+        def probe(a, b):
+            return probe_pairs(a, b, key_left, key_right, values,
+                               max_probes).to(torch.int64)
+
+        while bool((pr < INF).any()):
+            m = torch.argmin(pr, dim=1)                 # leftmost min
+            mrank = torch.gather(pr, 1, m[:, None])[:, 0]
+            do = mrank < INF
+
+            j = gather_row(nxt, m, P)
+            nj = gather_row(nxt, j, P)
+            at_m = do[:, None] & (pos == m[:, None])
+            at_j = do[:, None] & (pos == j[:, None])
+
+            rank = torch.where(at_m, mrank[:, None], rank)
+            alive = alive & ~at_j
+            nxt = torch.where(at_m, nj[:, None], nxt)
+            prv = torch.where((do & (nj < P))[:, None] & (pos == nj[:, None]),
+                              m[:, None], prv)
+            pr = torch.where(at_j, INF, pr)
+
+            new_pm = probe(torch.where(do, mrank, -1),
+                           gather_row(rank, nj, -1))
+            pr = torch.where(at_m, new_pm[:, None], pr)
+
+            pm = gather_row(prv, m, -1)
+            r_pm = torch.where(gather_row(alive, pm, False),
+                               gather_row(rank, pm, -1), -1)
+            new_pp = probe(r_pm, torch.where(do, mrank, -1))
+            pr = torch.where((do & (pm >= 0))[:, None] & (pos == pm[:, None]),
+                             new_pp[:, None], pr)
+
+        # left-align the surviving ranks; -1 padding
+        order = torch.cumsum(alive.to(torch.int64), dim=1) - 1
+        rows = torch.arange(B, device=dev)[:, None].expand(B, P)
+        out = torch.full((B, P), -1, dtype=torch.int32, device=dev)
+        out[rows[alive], order[alive]] = rank[alive].to(torch.int32)
+        return out, alive.sum(dim=1, dtype=torch.int32)
+
+    return merge
+
+
+def merge_bucket_fn(P: int, max_probes: int):
+    """The bucket merge of width ``P`` (``make_merge_bucket``; the JAX
+    package caches its jitted function here, a torch closure needs no
+    cache)."""
+    return make_merge_bucket(P, max_probes)

@@ -16,6 +16,13 @@ buffer; rows are independent documents.
   that the stage-1 kernel evaluates in-kernel (csrc/stage1_compact.cu).
 - ``byte_char_structure`` and ``byte_boundaries`` compute the route-3
   (UTF-8) flags that the kernel takes as its ``external`` input.
+- The differential formulations, held against the above in the tests:
+  ``_char_boundaries`` (the full rule set on native cumulative scans),
+  ``byte_boundaries_ascii`` / ``byte_boundaries_ascii_simple`` (ASCII rows
+  through it and through the simple rules, with ``ascii_packed_lookup``'s
+  classes), ``byte_boundaries_via_chars`` (chars compacted by scatter,
+  ``_char_boundaries``, flags scattered back) and ``pretokenize_vec``
+  (one string through ``byte_boundaries``, split on the host).
 """
 
 from __future__ import annotations
@@ -139,6 +146,101 @@ def _contraction(fold, is_l, is_p, is_apos, change, change_next,
             | ((contraction & two_letter).to(torch.int64) << 1))
 
 
+def _char_boundaries(cp, is_valid, pk=None):
+    """Piece-start flags at char positions, row-local over the last axis:
+    the full rule set with native cumulative scans (torch cummax /
+    cummin) for the run-level rules.  The independent reference that the
+    log-doubling and byte-level formulations are held against; it shares
+    no rule code with them.  ``pk`` (class | fold << 3 per char) defaults
+    to a gather of the Unicode table at ``cp``.  Mirrors the JAX
+    package's ``_char_boundaries`` (derivation of rule E there)."""
+    idx = _iota(cp)
+    cp = torch.where(is_valid, cp.to(torch.int64), 0)
+    if pk is None:
+        tab = _packed_table_on(str(cp.device))
+        pk = tab[cp.clamp(0, tab.shape[0] - 1)]
+    pk = torch.where(is_valid, pk.to(torch.int64), 0)
+    cls = pk & 7
+    fold = (pk >> 3) & 0x1F
+
+    is_l = (cls & _LETTER) != 0
+    is_n = (cls & _NUMBER) != 0
+    is_w = (cls & _WS) != 0
+    is_p = is_valid & ~is_l & ~is_n & ~is_w
+    is_nl = is_valid & ((cp == 0x0D) | (cp == 0x0A))
+    is_space = is_valid & (cp == 0x20)
+    is_apos = is_valid & (cp == 0x27)
+
+    g = torch.where(is_l, 0, torch.where(is_n, 1, torch.where(
+        is_w, 2, torch.where(is_p, 3, 4))))
+    one = torch.ones(g.shape[:-1] + (1,), dtype=torch.bool, device=g.device)
+    change = torch.cat([one, g[..., 1:] != g[..., :-1]], dim=-1)
+    change_next = torch.cat([g[..., :-1] != g[..., 1:], one], dim=-1)
+
+    # native cumulative scans
+    S = _cummax(torch.where(change, idx, -1))                 # run start
+    u = _cummax(torch.where(~is_nl & is_valid, idx, -1))      # last non-nl
+    f = _rcummin(torch.where(is_nl, idx, BIG))                # first nl >= i
+
+    # shifted neighbour context
+    p_is_w = _sh(is_w, -1, False)
+    p_is_nl = _sh(is_nl, -1, False)
+    p_is_p = _sh(is_p, -1, False)
+    p_is_space = _sh(is_space, -1, False)
+    p_change = _sh(change, -1, False)
+    p2_is_space = _sh(is_space, -2, False)
+    u_prev = _sh(u, -1, -1)
+    f_prev = _sh(f, -1, BIG)
+    next_valid = _sh(is_valid, 1, False)
+
+    # contraction at a free length-1 apostrophe run
+    f1 = _sh(fold, 1, 0)
+    f2 = _sh(fold, 2, 0)
+    next_is_letter = _sh(is_l, 1, False)
+    has_l2 = _sh(is_l, 2, False) & ~_sh(change, 2, True)
+    p_free_apos = is_p & is_apos & change & change_next & ~p_is_space
+    one_letter = (f1 == _F_S) | (f1 == _F_T) | (f1 == _F_M) | (f1 == _F_D)
+    two_letter = ((((f1 == _F_R) | (f1 == _F_V)) & has_l2 & (f2 == _F_E))
+                  | ((f1 == _F_L) & has_l2 & (f2 == _F_L)))
+    contraction = p_free_apos & next_is_letter & (one_letter | two_letter)
+    cons1 = contraction & one_letter
+    cons2 = contraction & two_letter
+
+    # rule A: number runs split into triples
+    b_num = is_n & (((idx - S) % 3) == 0)
+    # rule B: letter-run start
+    absorbed = (p_is_w & ~p_is_nl) | (p_is_p & p_change & ~p2_is_space)
+    b_letter_start = is_l & change & ~((idx > 0) & absorbed)
+    # rule C: post-contraction remainder
+    b_letter_cont = is_l & ~change & (
+        (_sh(change, -1, False) & _sh(cons1, -2, False))
+        | (_sh(change, -2, False) & ~_sh(change, -1, False)
+           & _sh(cons2, -3, False)))
+    # rule D: punct-run start
+    b_punct = is_p & change & ~((idx > 0) & p_is_space)
+
+    # rule E: whitespace runs; "the char before this run is P" broadcast
+    # from the run start by one cummax (idx increases, so the latest run
+    # start wins)
+    packed = torch.where(change, idx * 2 + p_is_p.to(torch.int64), -1)
+    prev_run_is_p = (_cummax(packed) & 1) == 1
+    run_continues = ~change
+    nxt_change_pos = _rcummin(torch.where(change_next, idx, BIG))  # run end
+    no_nl_to_end = f > nxt_change_pos
+    no_nl_to_end_prev = f_prev > nxt_change_pos
+    is_entry = is_w & torch.where(prev_run_is_p, ~is_nl & (u_prev < S),
+                                  change)
+    prev_ge_entry = torch.where(prev_run_is_p, u_prev >= S, True)
+    b_ws_tail = (is_w & run_continues & p_is_nl & prev_ge_entry
+                 & no_nl_to_end & ~is_entry)
+    b_ws_last = (is_w & change_next & next_valid & run_continues
+                 & ~p_is_nl & no_nl_to_end_prev)
+    b_ws = is_entry | b_ws_tail | b_ws_last
+
+    return (b_num | b_letter_start | b_letter_cont | b_punct
+            | b_ws) & is_valid
+
+
 def _char_boundaries_simple(cp, is_valid, pk):
     """Scan-free boundary rules for SIMPLE rows: no whitespace run longer
     than 1 char and no digit run longer than 3 (the caller routes).  Under
@@ -241,6 +343,33 @@ def _char_boundaries_general(cp, is_valid, pk):
 def row_valid(byts: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(B, R) bool: lane < the row's length."""
     return _iota(byts)[None, :] < lengths.to(torch.int64).reshape(-1, 1)
+
+
+def ascii_packed_lookup(byts: torch.Tensor) -> torch.Tensor:
+    """cls | fold << 3 of ASCII bytes from the first 128 entries of the
+    packed Unicode table (0 for bytes >= 0x80), uint8.  The JAX package
+    computes it as a one-hot matmul for the TPU's matrix unit; here it is
+    a direct index."""
+    b = byts.to(torch.int64)
+    tab = _packed_table_on(str(byts.device))
+    return torch.where(b < 128, tab[b.clamp(0, 127)], 0).to(torch.uint8)
+
+
+def byte_boundaries_ascii(byts: torch.Tensor, lengths: torch.Tensor,
+                          pk: torch.Tensor) -> torch.Tensor:
+    """Piece-start flags of all-ASCII rows (every byte a char) through the
+    full rules of ``_char_boundaries``; ``pk`` from
+    ``ascii_packed_lookup``."""
+    return _char_boundaries(byts.to(torch.int64), row_valid(byts, lengths),
+                            pk=pk)
+
+
+def byte_boundaries_ascii_simple(byts: torch.Tensor, lengths: torch.Tensor,
+                                 pk: torch.Tensor) -> torch.Tensor:
+    """Piece-start flags of all-ASCII rows of a SIMPLE batch (no
+    whitespace run > 1, no digit run > 3; the caller checks)."""
+    return _char_boundaries_simple(byts.to(torch.int64),
+                                   row_valid(byts, lengths), pk)
 
 
 def ascii_boundaries(byts: torch.Tensor, lengths: torch.Tensor,
@@ -425,3 +554,51 @@ def byte_boundaries(byts: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
     return ((b_num | b_letter_start | b_letter_cont | b_punct | b_ws)
             & valid & is_lead)
+
+
+def byte_boundaries_via_chars(byts: torch.Tensor,
+                              lengths: torch.Tensor) -> torch.Tensor:
+    """Piece-start flags (B, R) bool of padded UTF-8 rows by char
+    compaction: each row's chars are scattered into char order, run
+    through ``_char_boundaries``, and the flags scattered back to their
+    lead bytes.  The differential reference of ``byte_boundaries``."""
+    is_lead, cp = byte_char_structure(byts, lengths)
+    B, L = byts.shape
+    idx = _iota(byts).expand(B, L)
+    rows = torch.arange(B, device=byts.device)[:, None].expand(B, L)
+
+    # char k of a row lives at byte lead_pos[k]; only lead bytes are
+    # scattered (the JAX package drops the others out of range)
+    char_idx = torch.cumsum(is_lead.to(torch.int64), dim=-1) - 1
+    at = (rows[is_lead], char_idx[is_lead])
+    lead_pos = torch.zeros((B, L), dtype=torch.int64, device=byts.device)
+    lead_pos[at] = idx[is_lead]
+    cp_char = torch.zeros((B, L), dtype=torch.int64, device=byts.device)
+    cp_char[at] = cp[is_lead]
+    nchars = is_lead.sum(dim=-1, keepdim=True)
+    cb = _char_boundaries(cp_char, _iota(byts)[None, :] < nchars)
+
+    out = torch.zeros((B, L), dtype=torch.bool, device=byts.device)
+    out[rows[cb], lead_pos[cb]] = True
+    return out & row_valid(byts, lengths)
+
+
+def _bucket_len(n: int, minimum: int = 64) -> int:
+    b = minimum
+    while b < n:
+        b <<= 1
+    return b
+
+
+def pretokenize_vec(text: str, device="cuda") -> list[str]:
+    """Split ``text`` with the boundary rules on ``device``: one row,
+    padded to a power-of-two bucket, through ``byte_boundaries``; the
+    pieces are cut on the host.  Equals ``oracle.pretokenize``."""
+    data = text.encode("utf-8")
+    padded = np.zeros((1, _bucket_len(len(data))), dtype=np.uint8)
+    padded[0, :len(data)] = np.frombuffer(data, dtype=np.uint8)
+    byts = torch.from_numpy(padded).to(device)
+    lens = torch.tensor([len(data)], dtype=torch.int32, device=byts.device)
+    flags = byte_boundaries(byts, lens)[0, :len(data)].cpu().numpy()
+    starts = np.flatnonzero(flags).tolist() + [len(data)]
+    return [data[a:b].decode("utf-8") for a, b in zip(starts, starts[1:])]

@@ -43,7 +43,14 @@ from .special_tokens import (
     SpecialTokens,
     get_deprecated_special_tokens,
 )
-from .vocab import CuckooPairTable, DecodeTable, WordDirectMap, reload_mergeable_ranks
+from .vocab import (
+    CuckooPairTable,
+    CuckooPieceTable,
+    DecodeTable,
+    PairTable,
+    WordDirectMap,
+    reload_mergeable_ranks,
+)
 
 # the most bytes one packed buffer of encode_batch holds: larger batches
 # run as several row sub-batches, and a doc longer than an 8-row buffer's
@@ -146,6 +153,8 @@ class Tekkenizer:
         self._native_encoder = None
         self._last_engine: Optional[str] = None
         self._cuckoo_table: Optional[CuckooPairTable] = None
+        self._pair_table: Optional[PairTable] = None
+        self._piece_table: Optional[CuckooPieceTable] = None
         self._word_map: Optional[WordDirectMap] = None
         self._device_tables: dict = {}
         self._packed_encoders: dict = {}
@@ -652,6 +661,20 @@ class Tekkenizer:
         if self._cuckoo_table is None:
             self._cuckoo_table = CuckooPairTable.build(self._ranks)
         return self._cuckoo_table
+
+    def pair_table(self) -> PairTable:
+        """The linear-probe pair table of the flat engine (ops/flat.py) and
+        the bucket merge (ops/bpe.py ``merge_bucket_fn``)."""
+        if self._pair_table is None:
+            self._pair_table = PairTable.build(self._ranks)
+        return self._pair_table
+
+    def piece_table(self) -> CuckooPieceTable:
+        """The whole-piece (poly-signature, length) -> rank cuckoo table of
+        the flat engine's whole-piece fast path."""
+        if self._piece_table is None:
+            self._piece_table = CuckooPieceTable.build(self._ranks)
+        return self._piece_table
 
     def word_map(self) -> WordDirectMap:
         """The word-exact whole-piece table: narrow (<= 12-byte tokens)

@@ -10,7 +10,11 @@ Turns a model file's vocab list into:
    - the rank set must be contiguous ``0..len`` (src/tekkenizer.rs:804-813)
 2. ``CuckooPairTable``: (left_rank, right_rank) -> merged_rank, two-choice
    cuckoo hashed, plus the dense byte-pair table of the first merge round.
+   ``PairTable``: the same map with linear probing, for the flat engine
+   (ops/flat.py) and the bucket merge (ops/bpe.py).
 3. ``WordDirectMap``: the word-exact single-probe whole-piece table.
+   ``CuckooPieceTable``: the flat engine's whole-piece table, keyed by the
+   scan-friendly polynomial signature ``poly_sig31``.
 4. ``PieceTable``: the native engine's whole-piece FNV-1a index.
 5. ``DecodeTable``: concatenated token bytes + offsets.
 
@@ -89,6 +93,85 @@ def _enumerate_pairs(ranks: dict[bytes, int]) -> list[tuple[int, int, int]]:
             if r is not None:
                 pairs.append((l, r, rank))
     return pairs
+
+
+def pair_hash(left: np.ndarray, right: np.ndarray, table_size: int) -> np.ndarray:
+    """Hash a (left_rank, right_rank) pair into [0, table_size) (a power of
+    two) — ``cuckoo_hash`` with seed 0; uint32 arithmetic, mirrored by the
+    device probe (ops/bpe.py ``probe_pairs``)."""
+    l = left.astype(np.uint32)
+    r = right.astype(np.uint32)
+    with np.errstate(over="ignore"):
+        h = (l * _HC1) ^ (r * _HC2)
+        h ^= h >> np.uint32(15)
+        h *= _HC3
+        h ^= h >> np.uint32(13)
+    return (h & np.uint32(table_size - 1)).astype(np.int64)
+
+
+@dataclass
+class PairTable:
+    """Open-addressing (linear probing) hash table of BPE merge pairs.
+
+    Arrays (all length ``size``, a power of two):
+      - ``key_left`` / ``key_right``: int32 pair key, -1 where empty
+      - ``values``: merged rank (int32), -1 where empty
+
+    ``max_probes`` bounds the longest probe chain, so the device probe is
+    a loop of fixed length.
+    """
+
+    key_left: np.ndarray
+    key_right: np.ndarray
+    values: np.ndarray
+    size: int
+    max_probes: int
+    num_pairs: int
+
+    @classmethod
+    def build(cls, ranks: dict[bytes, int], load_factor: float = 0.5) -> "PairTable":
+        pairs = _enumerate_pairs(ranks)
+        num_pairs = len(pairs)
+        size = max(64, _next_pow2(int(num_pairs / load_factor) + 1))
+        key_left = np.full(size, -1, dtype=np.int32)
+        key_right = np.full(size, -1, dtype=np.int32)
+        values = np.full(size, -1, dtype=np.int32)
+
+        max_probes = 1
+        if num_pairs:
+            arr = np.asarray(pairs, dtype=np.int64)
+            slots = pair_hash(arr[:, 0], arr[:, 1], size)
+            mask = size - 1
+            for (l, r, val), slot in zip(arr, slots):
+                probes = 1
+                s = int(slot)
+                while key_left[s] >= 0:
+                    if key_left[s] == l and key_right[s] == r:
+                        probes = 0  # duplicate pair; bytes->rank is a function
+                        break
+                    s = (s + 1) & mask
+                    probes += 1
+                if probes == 0:
+                    continue
+                key_left[s] = l
+                key_right[s] = r
+                values[s] = val
+                max_probes = max(max_probes, probes)
+
+        return cls(key_left=key_left, key_right=key_right, values=values,
+                   size=size, max_probes=max_probes, num_pairs=num_pairs)
+
+    def lookup_host(self, left: int, right: int) -> int:
+        """Scalar host-side probe (for tests). Returns merged rank or -1."""
+        s = int(pair_hash(np.asarray(left), np.asarray(right), self.size))
+        mask = self.size - 1
+        for _ in range(self.max_probes + 1):
+            if self.key_left[s] == left and self.key_right[s] == right:
+                return int(self.values[s])
+            if self.key_left[s] < 0:
+                return -1
+            s = (s + 1) & mask
+        return -1
 
 
 def cuckoo_hash(left, right, seed: int, table_size: int):
@@ -211,6 +294,165 @@ class CuckooPairTable:
                    & (self.packed[slots, 1] == rs))
             dense[np.where(hit)[0]] = self.packed[slots[hit], 2]
         return dense
+
+
+def poly_sig(data: bytes, k: int) -> int:
+    """Polynomial rolling signature ``sum b_i * k^(L-1-i) mod 2^32``.
+
+    The hash of a concatenation is ``h_a * k^len_b + h_b``, so the flat
+    engine (ops/flat.py) computes every piece's signature with one
+    segmented scan.  Mirrored exactly there."""
+    h = 0
+    for b in data:
+        h = (h * k + b) & 0xFFFFFFFF
+    return h
+
+
+def poly_sig31(data: bytes, k: int) -> int:
+    """31-bit polynomial signature (non-negative, so it rides the same
+    cuckoo probe as (left, right) pair keys)."""
+    return poly_sig(data, k) & 0x7FFFFFFF
+
+
+@dataclass
+class CuckooPieceTable:
+    """Whole-piece (poly_sig31, length) -> rank cuckoo index: the flat
+    engine's fast path (reference engine semantics: a piece whose bytes
+    ARE a vocab token encodes as that token before any merging —
+    src/tekkenizer.rs:125).
+
+    Two row gathers a lookup (the same ``probe2`` as pair lookups).  The
+    multiplier ``k`` is chosen at build time so that no two vocab tokens
+    share a (signature, length) pair: a match names a unique candidate,
+    which callers byte-verify against the decode table; exactness never
+    rests on the hash.
+    """
+
+    packed: np.ndarray      # (size, 4) int32 [sig31, len, rank, 0]
+    size: int
+    k: int
+    seed1: int
+    seed2: int
+
+    # odd multipliers tried in order at build time
+    _K_CANDIDATES = (0x01000193, 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D,
+                     0x27D4EB2F, 0x165667B1, 0x5851F42D, 0x41C64E6D)
+
+    @classmethod
+    def build(cls, ranks: dict[bytes, int], load_factor: float = 0.45
+              ) -> "CuckooPieceTable":
+        for k in cls._K_CANDIDATES:
+            sigs = set()
+            collision = False
+            for token_bytes in ranks:
+                key = (poly_sig31(token_bytes, k), len(token_bytes))
+                if key in sigs:
+                    collision = True
+                    break
+                sigs.add(key)
+            if not collision:
+                break
+        else:
+            raise InvalidConfigError("piece table: no collision-free "
+                                     "multiplier found")
+
+        triples = [(poly_sig31(b, k), len(b), r) for b, r in ranks.items()]
+        packed, size, seed1, seed2 = _cuckoo_place(triples, load_factor)
+        return cls(packed=packed, size=size, k=k, seed1=seed1, seed2=seed2)
+
+    def lookup_host(self, piece: bytes, decode_table: "DecodeTable") -> int:
+        sig = poly_sig31(piece, self.k)
+        for seed in (self.seed1, self.seed2):
+            s = int(cuckoo_hash(sig, len(piece), seed, self.size))
+            if (self.packed[s, 0] == sig and self.packed[s, 1] == len(piece)
+                    and self.packed[s, 2] >= 0):
+                r = int(self.packed[s, 2])
+                return r if decode_table.token_bytes(r) == piece else -1
+        return -1
+
+    def direct_map(self, ranks: dict[bytes, int], slots_per_entry: int = 16,
+                   max_log2: int = 22, _min_log2: int = 14
+                   ) -> tuple[np.ndarray, int]:
+        """Single-probe candidate table: (size, 4) int32 rows
+        [sig31, len, rank, 0], slot = cuckoo_hash(sig, len, seed).
+        Returns (table, seed).
+
+        On a build-time slot collision the SHORTER token wins (a frequency
+        heuristic) — UNLESS a collider is *greedy-unstable* (its own greedy
+        merge does not reproduce it, e.g. a token with no in-vocab
+        two-token split): such a token depends on the whole-piece probe
+        for exactness, so it always wins its slot.  Losing a greedy-STABLE
+        entry is harmless (callers byte-verify every candidate and route
+        misses to the merge path, which reproduces a stable token).  If
+        two unstable tokens collide, the table is regrown/reseeded until
+        every unstable token holds a slot; a build that cannot satisfy
+        this raises."""
+        from .oracle import byte_pair_merge_no_whole
+
+        live = self.packed[self.packed[:, 2] >= 0]
+        base = max(1 << _min_log2, min(1 << max_log2,
+                                       _next_pow2(slots_per_entry *
+                                                  max(1, len(live)))))
+
+        by_rank: dict[int, bytes] = {r: b for b, r in ranks.items()}
+        stab_cache: dict[int, bool] = {}
+
+        def stable(rank: int) -> bool:
+            got = stab_cache.get(rank)
+            if got is None:
+                b = by_rank[rank]
+                got = (len(b) < 2
+                       or byte_pair_merge_no_whole(b, ranks) == [rank])
+                stab_cache[rank] = got
+            return got
+
+        # shortest-first, ties by rank: the FIRST row of a slot group is the
+        # default winner
+        order = np.lexsort((live[:, 2].astype(np.int64),
+                            live[:, 1].astype(np.int64)))
+        rows = live[order]
+        sigs = rows[:, 0].astype(np.int64)
+        lens = rows[:, 1].astype(np.int64)
+
+        seeds = [self.seed1] + [
+            (self.seed1 + i * 0x632BE59B) & 0x7FFFFFFF or 1
+            for i in range(1, 8)]
+        for seed in seeds:
+            size = base
+            while size <= (1 << max_log2):
+                slots = cuckoo_hash(sigs, lens, seed, size)
+                dm = np.zeros((size, 4), dtype=np.int32)
+                dm[:, 2] = -1
+                # longest-first scatter: duplicate-index writes keep the
+                # LAST one, i.e. the shortest (lowest-rank on ties) row
+                dm[slots[::-1]] = rows[::-1]
+                # collision groups only: an unstable collider must override
+                # the heuristic winner
+                grp = np.argsort(slots, kind="stable")
+                gs = slots[grp]
+                dup = np.flatnonzero(gs[1:] == gs[:-1])
+                ok = True
+                gi = 0
+                while gi < len(dup):
+                    lo = dup[gi]
+                    hi = lo + 1
+                    while hi < len(gs) - 1 and gs[hi + 1] == gs[lo]:
+                        hi += 1
+                    members = grp[lo:hi + 1]
+                    unstable = [m for m in members
+                                if not stable(int(rows[m, 2]))]
+                    if len(unstable) > 1:
+                        ok = False
+                        break
+                    if unstable:
+                        dm[gs[lo]] = rows[unstable[0]]
+                    while gi < len(dup) and dup[gi] < hi:
+                        gi += 1
+                if ok:
+                    return dm, seed
+                size <<= 1
+        raise InvalidConfigError(
+            "direct_map: could not give every greedy-unstable token a slot")
 
 
 def _le_words(data: bytes, n_words: int) -> list[int]:
@@ -480,3 +722,37 @@ class DecodeTable:
 
     def token_bytes(self, rank: int) -> bytes:
         return self.flat[self.offsets[rank]:self.offsets[rank + 1]].tobytes()
+
+    def padded_rows(self, row_len: int | None = None) -> np.ndarray:
+        """(n_ranks, row_len) uint8 array of token bytes, zero-padded.
+        Flattened on the device, entry ``rank * row_len + offset`` is byte
+        ``offset`` of token ``rank``: the flat engine's whole-piece verify
+        is one element gather per input byte.  Tokens longer than row_len
+        are all-zero rows (callers only verify pieces of <= row_len
+        bytes)."""
+        n = len(self.offsets) - 1
+        L = row_len if row_len is not None else max(1, self.max_token_len)
+        rows = np.zeros((n, L), dtype=np.uint8)
+        for r in range(n):
+            o0, o1 = int(self.offsets[r]), int(self.offsets[r + 1])
+            if 0 < o1 - o0 <= L:
+                rows[r, :o1 - o0] = self.flat[o0:o1]
+        return rows
+
+    def word_packed(self, max_len: int = 32) -> np.ndarray:
+        """(n_ranks, max_len//4) int32 array of token bytes packed 4 per
+        little-endian word, zero-padded; tokens longer than max_len are
+        all-zero rows (they can never match a piece of <= max_len
+        bytes)."""
+        n = len(self.offsets) - 1
+        words = np.zeros((n, max_len // 4), dtype=np.int32)
+        buf = np.zeros(max_len, dtype=np.uint8)
+        for r in range(n):
+            o0, o1 = int(self.offsets[r]), int(self.offsets[r + 1])
+            ln = o1 - o0
+            if 0 < ln <= max_len:
+                buf[:] = 0
+                buf[:ln] = self.flat[o0:o1]
+                words[r] = buf.view("<u4").astype(np.int64).astype(
+                    np.uint32).view(np.int32)
+        return words
