@@ -86,6 +86,19 @@ Phases:
    ``oracle.pretokenize``; ``byte_boundaries_via_chars`` on the route-3
    batch against ``byte_boundaries``; ``graft_entry.dryrun_multichip(1)``
    in an NCCL group of one;
+   phase H, the verification tools (``tekken_tpu_torch.tools``) with the
+   launch counts zeroed once before and read once after, each of the four
+   kernels launched at least once: a fixed-count soak (synthetic
+   vocabularies of 0, 50, 200 and 1,200 merges asked, 4 batches of up to
+   16 docs of the soak's alphabets each, PackedEncoder 16 x 4096, seed
+   20260817) against the native engine and the oracle, with the card's
+   decode_batch (RAISE) and the unrouted flat encode of the same docs,
+   and the routed and flat encode of 16 joined docs past the 2,048-lane
+   tile and of 16 simple-ASCII docs of ~4 KB; ``fuzz_all_engines`` for 5
+   batches; ``tests/golden/synthetic_v1.json`` through the oracle, the
+   native engine, encode_batch, PackedEncoder, FlatEncoder and decode on
+   cuda:0; ``validate_model`` on the bench model saved to a file.  Any
+   mismatch fails it;
 5. the kernels at the paths' own inputs: time, plain time, bound, and one
    JSON line ``{"kernels": [...]}`` for all four.  stage1_compact is timed
    at each of its launches on the routed encode path (one ``[kernel]``
@@ -122,7 +135,7 @@ if not torch.cuda.is_available():
 import tekken_tpu_torch as tt  # noqa: E402
 from tekken_tpu_torch import _build, graft_entry  # noqa: E402
 from tekken_tpu_torch.models import (  # noqa: E402
-    bench_words, build_bench_vocab, build_corpus)
+    bench_words, build_bench_vocab, build_corpus, build_synthetic_model_data)
 from tekken_tpu_torch.native import build as native_build  # noqa: E402
 from tekken_tpu_torch.oracle import encode_ranks  # noqa: E402
 from tekken_tpu_torch.ops import decode as decode_mod  # noqa: E402
@@ -162,8 +175,12 @@ N_RES_CLIPS, RES_SECONDS, RES_RATE = 16, 10, 44_100
 # batched output agrees with them up to REF_MARGIN output samples before
 # their end (the filter reaches 32 output samples across)
 REF_SECONDS, REF_MARGIN = 2, 64
-# path G's time aim, seconds (its tables are built in phase 2)
+# path G's time aim, seconds (its tables are built in phase 2); phase H's,
+# and the synthetic vocabularies of its soak (merges asked: TRAIN_TEXTS
+# train at most 185, so 200 and 1,200 give one vocabulary)
 PATH_G_AIM_S = 15
+PATH_H_AIM_S = 20
+H_MERGES = (0, 50, 200, 1200)
 
 KERNELS = {
     "stage1_compact": ("tekken_tpu_torch/csrc/stage1_compact.cu",
@@ -1051,14 +1068,15 @@ def path_f(tok, words, batches, routed_out):
     if counts["stage1_compact"] < 1:
         raise AssertionError(f"[cli] encode-file device: launches {counts}")
     if (info["vocab_size"], info["num_special_tokens"]) != (
-            tok.vocab_size(), N_SPECIAL) or valid != "VALIDATION OK\n":
+            tok.vocab_size(), N_SPECIAL) or not valid.endswith(
+                "native engine parity: checked\nVALIDATION OK\n"):
         raise AssertionError(f"[cli] info {info}, validate {valid!r}")
     cli_s = time.perf_counter() - t0
     log(f"[cli] encode-file --engine device (launches {counts}) and "
         f"--engine native over {len(lines)} route-1 lines: equal JSONL, "
         f"equal to encode_batch; info {json.dumps(info)}; validate "
-        f"{valid.strip()}; {cli_s:.1f} s with the model file's save and "
-        f"four loads")
+        f"{valid.strip().splitlines()[-1]}; {cli_s:.1f} s with the model "
+        f"file's save and four loads")
     res["cli"] = {"lines": len(lines), "launches": counts, "s": cli_s}
 
     # graft_entry's flagship step: the unrouted packed encode on the
@@ -1229,6 +1247,179 @@ def path_g(tok, batches):
     log(f"[graft] dryrun_multichip(1) in an NCCL group of one: {dry}; "
         f"{res['dryrun_multichip_1']['s']:.1f} s with the bench tokenizer's "
         f"build")
+    return res
+
+
+# --------------------------------------------------------------------- #
+# phase H: the verification tools on the card
+# --------------------------------------------------------------------- #
+
+def path_h(tok):
+    """The port's verification tools (``tekken_tpu_torch.tools``) on the
+    card, all four kernels between one zeroing of the launch counts and
+    one reading: a fixed-count soak (vocabularies of H_MERGES merges, 4
+    batches of 16 x 4096 each, seed ``soak.SEED``) with decode_batch
+    (RAISE) and the unrouted flat encode of the same texts, and the
+    routed and the flat encode of a batch of joined docs past the
+    2,048-lane tile and of a simple-ASCII batch; fuzz_all_engines for 5
+    batches; the golden corpus through every engine; validate on the
+    bench model saved to a file.
+    Fails on any mismatch and unless each kernel launched."""
+    import io
+    import tempfile
+
+    from tekken_tpu_torch.ops.flat import FlatEncoder
+    from tekken_tpu_torch.ops.packed import PackedEncoder
+    from tekken_tpu_torch.tools import fuzz_all_engines, soak, validate_model
+
+    def quiet(fn, *a):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(*a)
+        return rc, buf.getvalue()
+
+    res = {}
+    _build.reset_launches()
+    t_h = time.perf_counter()
+
+    # the soak's vocabularies: every doc through PackedEncoder(16, 4096),
+    # the native engine and the oracle, and back through the host decode
+    # (soak.soak_vocab), then through the card's decode and the flat encode
+    rng = random.Random(soak.SEED)
+    words = [w for t in soak.TRAIN_TEXTS for w in t.split() if w.isascii()]
+    r_ascii = random.Random(8)
+    ascii_batch = []
+    for _ in range(16):
+        doc = r_ascii.choice(words)
+        while len(doc) < 4000:
+            doc += " " + r_ascii.choice(words)
+        ascii_batch.append(doc[:4096].rstrip())
+    soak_docs = bad = long_docs = 0
+    vocab_sizes = []
+    for n_merges in H_MERGES:
+        stok, enc, batches_h, lines = soak.soak_vocab(
+            n_merges, rng, soak.SEED, DEV, n_batches=4, rows=16,
+            row_len=4096)
+        texts = [t for b in batches_h for t in b]
+        # the soak's docs stay under 2,400 bytes: 16 docs of its texts
+        # joined to 2,500-4,096 bytes cross the 2,048-lane tile
+        long_batch = []
+        for k in range(16):
+            doc = ""
+            for t in texts[k:] + texts[:k]:
+                if len(doc.encode()) > 2500:
+                    break
+                doc += t
+            long_batch.append(clip_bytes(doc, 4096))
+        shift = stok.num_special_tokens()
+        want = {t: encode_ranks(t, stok.ranks)
+                for t in texts + ascii_batch + long_batch}
+        # the routed encode of the long and the ASCII batches
+        for b in (long_batch, ascii_batch):
+            lines += [f"MISMATCH merges={n_merges} seed={soak.SEED} "
+                      f"doc={t!r} routed encode" for t, o in zip(
+                          b, enc.encode_batch(b)) if o != want[t]]
+        # decode_batch on the card, RAISE: the oracle's ids round-trip
+        back = stok.decode_batch([[r + shift for r in want[t]]
+                                  for t in texts], SpecialTokenPolicy.RAISE)
+        lines += [f"MISMATCH merges={n_merges} seed={soak.SEED} doc={t!r} "
+                  f"decode_batch" for t, b_ in zip(texts, back) if b_ != t]
+        # the unrouted flat encode of the same batches, the long and the
+        # ASCII batch
+        for b in batches_h + [long_batch, ascii_batch]:
+            buf, lens = enc.pack(b)
+            out = enc._encode_buffer(buf, lens, len(b), None)
+            lines += [f"MISMATCH merges={n_merges} seed={soak.SEED} "
+                      f"doc={t!r} flat encode" for t, o in zip(b, out)
+                      if o != want[t]]
+        for ln in lines:
+            log(f"[tools] {ln}")
+        bad += len(lines)
+        soak_docs += len(texts)
+        long_docs += sum(len(t.encode()) > 2048 for t in long_batch)
+        vocab_sizes.append((n_merges, len(stok.ranks),
+                            tuple(stok.device_tables().packed.shape)))
+    torch.cuda.synchronize()
+    soak_s = time.perf_counter() - t_h
+    log(f"[tools] soak: vocabularies (merges asked, ranks, cuckoo table) "
+        f"{vocab_sizes}: {soak_docs} docs through PackedEncoder(16, 4096), "
+        f"the native engine, the oracle, decode_batch (RAISE) and the flat "
+        f"encode; a batch of 16 joined docs ({long_docs} over 2,048 bytes "
+        f"in all) and one of {len(ascii_batch)} simple-ASCII docs of ~4 KB "
+        f"a vocabulary through the routed and the flat encode; "
+        f"{bad} mismatches; {soak_s:.1f} s")
+
+    # the cross-engine fuzz: 5 batches, seed 0
+    t0 = time.perf_counter()
+    rc, out = quiet(fuzz_all_engines.main, 5, 0, DEV)
+    log(f"[tools] fuzz_all_engines 5 batches on {DEV}: rc {rc}, "
+        f"{out.strip().splitlines()[-1]}; {time.perf_counter() - t0:.1f} s")
+    if rc:
+        log(out)
+        bad += 1
+
+    # the golden corpus: the oracle, the native engine, encode_batch,
+    # PackedEncoder, FlatEncoder and decode under IGNORE, on cuda:0
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "golden", "synthetic_v1.json")) as f:
+        golden = json.load(f)
+    cfg = golden["tokenizer"]
+    md = build_synthetic_model_data(
+        num_merges=cfg["num_merges"],
+        num_special_tokens=cfg["num_special_tokens"])
+    gtok = tt.Tekkenizer.from_model_data(md, device="cuda:0")
+    otok = tt.Tekkenizer.from_model_data(md, device="cuda:0", native=False)
+    texts = [e["text"] for e in golden["entries"]]
+    ids = [e["ids"] for e in golden["entries"]]
+    gs = gtok.num_special_tokens()
+
+    def full(ranks):
+        return [gtok.bos_id()] + [r + gs for r in ranks] + [gtok.eos_id()]
+
+    engines = {
+        "oracle": [otok.encode(t, True, True) for t in texts],
+        "native": [gtok.encode(t, True, True) for t in texts],
+        "encode_batch": gtok.encode_batch(texts, True, True),
+        "PackedEncoder": [full(r) for r in PackedEncoder(
+            gtok, rows=len(texts), row_len=256,
+            device="cuda:0").encode_batch(texts)],
+        "FlatEncoder": [full(r) for r in FlatEncoder(
+            gtok, rows=len(texts), row_len=256,
+            device="cuda:0").encode_batch(texts)],
+    }
+    golden_bad = [k for k, v in engines.items() if v != ids]
+    if [gtok.decode(i, SpecialTokenPolicy.IGNORE) for i in ids] != texts:
+        golden_bad.append("decode")
+    log(f"[tools] golden synthetic_v1.json ({len(texts)} entries) on cuda:0: "
+        f"{', '.join(engines)} and decode (IGNORE) "
+        f"{'differ: ' + str(golden_bad) if golden_bad else 'reproduce it'}")
+    bad += len(golden_bad)
+
+    # validate on the bench model
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        tok.save(f"{root}/tekken.json")
+        rc, out = quiet(validate_model.main, [f"{root}/tekken.json"])
+    log(f"[tools] validate_model on the bench model: rc {rc}, "
+        f"{out.strip().splitlines()[-1]}; {time.perf_counter() - t0:.1f} s")
+    if rc or not out.endswith("VALIDATION OK\n"):
+        log(out)
+        bad += 1
+
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    h_s = time.perf_counter() - t_h
+    log(f"[tools] phase H launches {counts}; mismatches {bad}; {h_s:.1f} s "
+        f"({'within' if h_s <= PATH_H_AIM_S else 'over'} its "
+        f"{PATH_H_AIM_S} s aim)")
+    if bad:
+        raise AssertionError(f"phase H: {bad} mismatches")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"phase H: kernels {missing} not launched")
+    res["tools"] = {"soak_docs": soak_docs, "long_docs": long_docs,
+                    "vocabularies": vocab_sizes, "mismatches": bad,
+                    "launches": counts, "s": h_s, "soak_s": soak_s}
     return res
 
 
@@ -1574,14 +1765,15 @@ def main():
                       ("E", lambda: path_e(tok, x_res, res_want)),
                       ("F", lambda: path_f(tok, words, batches,
                                            routed_out)),
-                      ("G", lambda: path_g(tok, batches))):
+                      ("G", lambda: path_g(tok, batches)),
+                      ("H", lambda: path_h(tok))):
         t0 = time.perf_counter()
         results.update(run())
         log(f"[path {name}] {time.perf_counter() - t0:.1f} s")
-    if time.perf_counter() - t0 <= PATH_G_AIM_S:
-        log(f"[path G] within its {PATH_G_AIM_S} s aim")
-    else:
-        log(f"[path G] over its {PATH_G_AIM_S} s aim")
+        if name == "G":
+            within = time.perf_counter() - t0 <= PATH_G_AIM_S
+            log(f"[path G] {'within' if within else 'over'} its "
+                f"{PATH_G_AIM_S} s aim")
 
     # ---- 5. the kernels at the main path's own inputs ----
     t_phase = time.perf_counter()

@@ -10,7 +10,9 @@ more flag, ``--device``).
 Every subcommand takes ``--device cuda|cpu`` (default cuda): the device of
 ``encode --engine device`` and ``encode-file --engine auto|device``.
 ``--engine oracle`` encodes on the host with the oracle, ``auto`` (in
-``encode``) and ``native`` with the native engine.
+``encode``) and ``native`` with the native engine.  ``validate`` runs
+``tools.validate_model``: the oracle, the host engine, ``encode_batch``
+on the device and the native engine against each other on six probes.
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ def main(argv=None) -> int:
 
     args = p.parse_args(argv)
 
+    if args.cmd == "validate":
+        from .tools import validate_model
+        return validate_model.main([args.model, "--device", args.device])
+
     from .tekkenizer import Tekkenizer
     # --engine oracle: the host engine is the oracle, not the native one
     tok = Tekkenizer.from_file(args.model, device=args.device,
@@ -89,16 +95,6 @@ def main(argv=None) -> int:
             "bos_id": tok.bos_id(),
             "eos_id": tok.eos_id(),
         }, indent=2))
-        return 0
-
-    if args.cmd == "validate":
-        from .special_tokens import SpecialTokenPolicy
-        probe = "validation probe 123"
-        ids = tok.encode(probe, True, True)
-        if tok.decode(ids, SpecialTokenPolicy.IGNORE) != probe:
-            print("VALIDATION FAILED: the probe does not round-trip")
-            return 1
-        print("VALIDATION OK")
         return 0
 
     # encode-file

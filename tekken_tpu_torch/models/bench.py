@@ -19,10 +19,11 @@ N_WORDS = 40_000
 INNER_VOCAB = 130_872
 
 
-def bench_words() -> list[str]:
-    """The corpus words: N_WORDS lowercase words of 2-11 letters, from
-    ``random.Random(BENCH_SEED)``."""
-    rng = random.Random(BENCH_SEED)
+def bench_words(rng=None) -> list[str]:
+    """The corpus words: N_WORDS lowercase words of 2-11 letters, drawn
+    from ``rng`` (default ``random.Random(BENCH_SEED)``)."""
+    if rng is None:
+        rng = random.Random(BENCH_SEED)
     return ["".join(rng.choice("abcdefghijklmnopqrstuvwxyz")
                     for _ in range(rng.randint(2, 11)))
             for _ in range(N_WORDS)]

@@ -9,8 +9,6 @@ ASCII of at most 256 bytes, 8 lines at most, so it runs as route 1 at
 (8, 256).
 """
 
-import os
-
 import pytest
 
 from tekken_tpu_torch.__main__ import main
@@ -58,25 +56,22 @@ def paths(merged_tokenizer, tmp_path_factory):
             "mixed": str(root / "mixed.txt")}
 
 
-def _stdout(fn, argv, capsys):
-    capsys.readouterr()
+def _stdout(fn, argv, capfd):
+    capfd.readouterr()
     rc = fn(argv)
-    return rc, capsys.readouterr().out
+    return rc, capfd.readouterr().out
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_cli_prints_what_jax_prints(paths, case, capsys, monkeypatch):
+def test_cli_prints_what_jax_prints(paths, case, capfd):
+    """``validate``: the JAX CLI runs tools/validate_model.py in a
+    subprocess (captured at the file descriptor), the port its
+    tools.validate_model in process."""
     from tekken_tpu.__main__ import main as jax_main
 
     argv = [a.format(**paths) for a in CASES[case]]
-    if case == "validate":
-        # the JAX CLI runs tools/validate_model.py when it is there; the
-        # port runs the inline check it falls back to without it
-        exists = os.path.exists
-        monkeypatch.setattr(os.path, "exists", lambda p: False if str(
-            p).endswith("validate_model.py") else exists(p))
-    want = _stdout(jax_main, argv, capsys)
-    got = _stdout(main, argv + ["--device", "cpu"], capsys)
+    want = _stdout(jax_main, argv, capfd)
+    got = _stdout(main, argv + ["--device", "cpu"], capfd)
     assert got == want
     assert got[0] == 0 and got[1]
     if case.startswith("file-"):         # one JSON line a line of the file

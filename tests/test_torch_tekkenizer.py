@@ -162,9 +162,18 @@ def test_exports_cover_jax():
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py import neither jax nor the JAX package."""
-    pat = re.compile(r"^\s*(import|from)\s+(jax|tekken_tpu)\b(?!_)",
-                     re.MULTILINE)
+    """The port and chip_smoke.py import neither jax nor the JAX package,
+    nor the repo's ``bench.py`` or ``tools/`` scripts (which import the
+    JAX package)."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|tekken_tpu|bench|tools)"
+                     r"\b(?!_)", re.MULTILINE)
+    for line in ("import bench", "from bench import build_corpus",
+                 "import tools.soak", "    from tools import soak",
+                 "from tekken_tpu.ops import packed", "import jax.numpy"):
+        assert pat.search(line), line
+    for line in ("from .tools import soak", "import tekken_tpu_torch.tools",
+                 "from .models.bench import BENCH_SEED"):
+        assert not pat.search(line), line
     files = sorted((REPO / "tekken_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
