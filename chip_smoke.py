@@ -99,6 +99,14 @@ Phases:
    native engine, encode_batch, PackedEncoder, FlatEncoder and decode on
    cuda:0; ``validate_model`` on the bench model saved to a file.  Any
    mismatch fails it;
+   phase I, the benchmark tools (``tekken_tpu_torch.tools.bench``,
+   ``bench_ab``, ``bench_batchscale``) on the bench tokenizer built in
+   phase 2, with the launch counts zeroed once before and read once
+   after, each of the four kernels launched at least once:
+   ``bench.run`` at 1,024 rows (reps 4, iters 2, decode reps 4, decode
+   iters 2: every parity check of the bench, and a rate for every key of
+   its line), one sample of ``bench_ab`` (routed against flat, 128 rows)
+   and of ``bench_batchscale`` at 128 and 1,024 rows;
 5. the kernels at the paths' own inputs: time, plain time, bound, and one
    JSON line ``{"kernels": [...]}`` for all four.  stage1_compact is timed
    at each of its launches on the routed encode path (one ``[kernel]``
@@ -180,6 +188,7 @@ REF_SECONDS, REF_MARGIN = 2, 64
 # train at most 185, so 200 and 1,200 give one vocabulary)
 PATH_G_AIM_S = 15
 PATH_H_AIM_S = 20
+PATH_I_AIM_S = 25
 H_MERGES = (0, 50, 200, 1200)
 
 KERNELS = {
@@ -327,23 +336,28 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, kernel, reps=20):
+def device_ms(fn, kernel, reps=20, traces=3):
     """Mean device time per fn() call of the CUDA kernels whose name holds
     ``kernel``, from a torch.profiler trace of reps calls after a
-    warm-up."""
+    warm-up.  A trace that holds no such kernel is taken again, up to
+    ``traces`` in all: torch.profiler has returned such a window without
+    its device events on the H100, between traces that held them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
-             for e in prof.key_averages() if kernel in e.key)
-    if not us:
-        raise AssertionError(f"the profiler saw no {kernel} kernel")
-    return us / reps / 1e3
+    for k in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+                 for e in prof.key_averages() if kernel in e.key)
+        if us:
+            return us / reps / 1e3
+        log(f"[kernel] trace {k + 1} of {traces} held no {kernel} kernel")
+    raise AssertionError(f"the profiler saw no {kernel} kernel in {traces} "
+                         f"traces")
 
 
 def max_abs_err(got, want):
@@ -1424,6 +1438,50 @@ def path_h(tok):
 
 
 # --------------------------------------------------------------------- #
+# phase I: the benchmark tools on the card
+# --------------------------------------------------------------------- #
+
+def path_i(tok, words):
+    """The port's benchmark tools on the card with the bench tokenizer,
+    all four kernels between one zeroing of the launch counts and one
+    reading: ``tools.bench.run`` at 1,024 rows (its parity checks: two
+    docs and the whole batch's device stream against the oracle, no
+    overflow, decode_batch on every doc), one sample of ``bench_ab`` and
+    of ``bench_batchscale`` at 128 and 1,024 rows.  Fails unless every
+    rate of the bench line is measured and each kernel launched."""
+    from tekken_tpu_torch.tools import bench, bench_ab, bench_batchscale
+
+    _build.reset_launches()
+    t_i = time.perf_counter()
+    line = bench.run(tok, words, rows=1024, reps=4, iters=2, decode_reps=4,
+                     decode_iters=2, device=DEV)
+    log(f"[bench] tools.bench.run at 1,024 rows: {json.dumps(line)}")
+    ab = bench_ab.run(tok, words, rows=128, samples=1, device=DEV)
+    scale = bench_batchscale.run(tok, words, sizes=(128, 1024), samples=1,
+                                 device=DEV)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    i_s = time.perf_counter() - t_i
+    log(f"[bench] phase I launches {counts}; {i_s:.1f} s "
+        f"({'within' if i_s <= PATH_I_AIM_S else 'over'} its "
+        f"{PATH_I_AIM_S} s aim)")
+    d = line["detail"]
+    unmeasured = [k for k, v in d.items() if k.endswith(("_per_sec",
+                                                         "_ratio"))
+                  and v is None]
+    if line["value"] is None or unmeasured or not d["compile_seconds"]:
+        raise AssertionError(f"phase I: the bench line lacks {unmeasured}")
+    if not all(ab.values()) or not all(scale.values()):
+        raise AssertionError(f"phase I: unmeasured samples {ab} {scale}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"phase I: kernels {missing} not launched")
+    return {"bench": {"line": line, "bench_ab_MB_per_s": ab,
+                      "bench_batchscale_MB_per_s": scale,
+                      "launches": counts, "s": i_s}}
+
+
+# --------------------------------------------------------------------- #
 
 def main():
     t_start = time.perf_counter()
@@ -1757,8 +1815,9 @@ def main():
 
     log(f"[path A] {time.perf_counter() - t_phase:.1f} s")
 
-    # ---- paths C-G: data-parallel encode, corpus stream, audio, the
-    # native engine, the differential engines ----
+    # ---- paths C-I: data-parallel encode, corpus stream, audio, the
+    # native engine, the differential engines, the verification and the
+    # benchmark tools ----
     for name, run in (("C", lambda: path_c(tok, batches, routed_out,
                                             flat_out)),
                       ("D", lambda: path_d(tok, words, batches)),
@@ -1766,7 +1825,8 @@ def main():
                       ("F", lambda: path_f(tok, words, batches,
                                            routed_out)),
                       ("G", lambda: path_g(tok, batches)),
-                      ("H", lambda: path_h(tok))):
+                      ("H", lambda: path_h(tok)),
+                      ("I", lambda: path_i(tok, words))):
         t0 = time.perf_counter()
         results.update(run())
         log(f"[path {name}] {time.perf_counter() - t0:.1f} s")

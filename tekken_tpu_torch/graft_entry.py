@@ -32,14 +32,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .config import TokenizerVersion
-from .models import bench_words, build_bench_vocab, build_synthetic_tokenizer
+from .models import bench_tokenizer, bench_words, build_synthetic_tokenizer
 from .oracle import encode_ranks
 from .ops.packed import packed_encode
 from .parallel.encode import DistributedEncoder
 from .parallel.mesh import _rank_device, make_dp_mesh
-from .special_tokens import get_deprecated_special_tokens
-from .tekkenizer import Tekkenizer
 
 SAMPLES = (b"Hello, world! it's a test 123",
            b"the quick brown fox jumps",
@@ -71,17 +68,6 @@ def entry(device="cuda"):
                 torch.from_numpy(lengths).to(device))
 
 
-def _bench_tokenizer(device="cuda"):
-    """The bench vocabulary's tokenizer (130,872 inner ranks from seed
-    1234, 1,000 specials) and its corpus words."""
-    words = bench_words()
-    vocab = build_bench_vocab(words)
-    return Tekkenizer(
-        vocab=vocab, special_tokens=get_deprecated_special_tokens(),
-        pattern=".*", vocab_size=len(vocab) + 1000, num_special_tokens=1000,
-        version=TokenizerVersion.V7, device=device), words
-
-
 def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     """One data-parallel encode over the current process group, which must
     hold ``n_devices`` ranks (no group is a world of one): 2N docs at rows
@@ -93,7 +79,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
         raise ValueError(f"dryrun_multichip({n_devices}) in a process group "
                          f"of {world} ranks")
     mesh = make_dp_mesh(device=device)
-    tok, words = _bench_tokenizer(mesh.device)
+    words = bench_words()
+    tok = bench_tokenizer(words, mesh.device)
     enc = DistributedEncoder(tok, mesh=mesh, rows=2 * n_devices,
                              row_len=256)
 

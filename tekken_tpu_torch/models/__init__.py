@@ -10,7 +10,8 @@ schema (reference: src/config.rs:73-82).  ``bench`` holds the bench
 configuration's word list, vocabulary and corpus builders.
 """
 
-from .bench import bench_words, build_bench_vocab, build_corpus
+from .bench import (bench_tokenizer, bench_words, build_bench_vocab,
+                    build_corpus)
 from .synthetic import (
     build_synthetic_model_data,
     build_synthetic_tokenizer,
@@ -18,6 +19,7 @@ from .synthetic import (
 )
 
 __all__ = [
+    "bench_tokenizer",
     "bench_words",
     "build_bench_vocab",
     "build_corpus",

@@ -3,8 +3,9 @@ builders, which import the JAX package): the seeded word list, the
 130,872-rank prefix-chain vocabulary over it, and the Pareto-distributed
 corpus.
 
+``bench_tokenizer`` is the bench's tokenizer (1,000 specials, V7).
 ``chip_smoke.py`` builds its full-width configuration from these, and
-``graft_entry.dryrun_multichip`` its bench tokenizer.
+``graft_entry.dryrun_multichip`` and the tools their bench tokenizer.
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ from __future__ import annotations
 import base64
 import random
 
-from ..config import TokenInfo
+from ..config import TokenInfo, TokenizerVersion
+from ..special_tokens import get_deprecated_special_tokens
+from ..tekkenizer import Tekkenizer
 
 BENCH_SEED = 1234
 N_WORDS = 40_000
@@ -54,6 +57,17 @@ def build_bench_vocab(words, inner_vocab: int = INNER_VOCAB
             break
     return [TokenInfo(rank=r, token_bytes=base64.b64encode(t).decode(),
                       token_str=None) for r, t in enumerate(tokens)]
+
+
+def bench_tokenizer(words, device="cuda", inner_vocab: int = INNER_VOCAB
+                    ) -> Tekkenizer:
+    """The bench tokenizer on ``device``: ``build_bench_vocab(words,
+    inner_vocab)``, the deprecated specials (1,000), pattern ``.*``, V7."""
+    vocab = build_bench_vocab(words, inner_vocab)
+    return Tekkenizer(
+        vocab=vocab, special_tokens=get_deprecated_special_tokens(),
+        pattern=".*", vocab_size=len(vocab) + 1000, num_special_tokens=1000,
+        version=TokenizerVersion.V7, device=device)
 
 
 def build_corpus(words, rng, n_docs: int, doc_len: int) -> list[str]:

@@ -28,14 +28,12 @@ import argparse
 import json
 import os
 import random
-import subprocess
 import sys
 import time
 
 import torch.distributed as dist
 
-from ..config import TokenizerVersion
-from ..models import (bench_words, build_bench_vocab, build_corpus,
+from ..models import (bench_tokenizer, bench_words, build_corpus,
                       build_synthetic_tokenizer)
 from ..models.bench import BENCH_SEED
 from ..native import NativeEncoder
@@ -43,8 +41,7 @@ from ..oracle import encode_ranks
 from ..parallel.encode import DistributedEncoder
 from ..parallel.mesh import _rank_device, make_dp_mesh
 from ..parallel.scaling import measure_dp_overhead, measure_scaling
-from ..special_tokens import get_deprecated_special_tokens
-from ..tekkenizer import Tekkenizer
+from . import card
 
 NOTE = ("one card a rank, one process a rank.  dp_overhead: the same "
         "rows x row_len buffer on 1, 2, ... ranks (each rank encodes its "
@@ -59,25 +56,7 @@ def _tokenizer(vocab: str, words, device):
     if vocab == "synthetic":
         return build_synthetic_tokenizer(num_merges=400,
                                          num_special_tokens=20, device=device)
-    ranks = build_bench_vocab(words)
-    return Tekkenizer(
-        vocab=ranks, special_tokens=get_deprecated_special_tokens(),
-        pattern=".*", vocab_size=len(ranks) + 1000, num_special_tokens=1000,
-        version=TokenizerVersion.V7, device=device)
-
-
-def _card(device) -> str:
-    """``nvidia-smi``'s name and power limit of the rank's card, or the
-    device's name on the CPU."""
-    if device.type != "cuda":
-        return str(device)
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-    index = (visible.split(",")[device.index] if visible
-             else str(device.index))
-    return subprocess.run(
-        ["nvidia-smi", "-i", index, "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    return bench_tokenizer(words, device)
 
 
 def _gather(obj, world: int) -> list:
@@ -154,7 +133,7 @@ def run(vocab: str = "bench", rows: int = 4096, row_len: int = 2048,
     scaling_s = time.time() - t4
 
     ranks_info = _gather({"rank": mesh.rank, "device": str(mesh.device),
-                          "card": _card(mesh.device), "gather_s": gather_s,
+                          "card": card(mesh.device), "gather_s": gather_s,
                           "encode_batch_s": batch_s}, world)
     # the points of every count are complete on rank 0 (a member of all)
     overhead, scaling = _gather((overhead, scaling), world)[0]
