@@ -15,7 +15,8 @@ builds what it needs, and ``build()`` builds every kernel at once, one
 nvcc process per source, all started together.
 
 ``LAUNCHES`` counts kernel launches by name (a kernel's library may have
-several C entry points; a launch of any of them counts toward its name).
+several C entry points; a launch of any of them counts toward its name);
+it is the launch section of the port's counters, ``utils.timing.COUNTERS``.
 ``launch`` adds one where a C entry point launched its kernel and nowhere
 else (not where an empty
 input left nothing to launch), so a caller can zero the counts, run the
@@ -32,6 +33,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from .utils.timing import COUNTERS
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -72,7 +75,8 @@ KERNELS = {
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = COUNTERS.launches
+LAUNCHES.update({name: 0 for name in KERNELS})
 # what a C entry point returns when its input is empty and it launched
 # nothing (CUDA error codes are >= 0)
 NO_LAUNCH = -1

@@ -45,11 +45,10 @@ mergeable ones (ROADMAP.md, queue 3).
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from ..utils.timing import COUNTERS, StageClock, mark, span
 from .bpe import INF, probe2
 from .hashing import to_i32
 from .merge import merge_buckets
@@ -79,26 +78,10 @@ def default_np_cap(n_bytes: int) -> int:
     return max(64, n_bytes // 8)
 
 
-class StageClock:
-    """Per-stage wall time of one encode, for measurement only.  Each mark
-    synchronizes the device first, so a stage's time includes its device
-    work; pass none on the production path."""
-
-    def __init__(self):
-        self.times: dict[str, float] = {}
-        self._t = time.perf_counter()
-
-    def mark(self, name: str, device=None) -> None:
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-        t = time.perf_counter()
-        self.times[name] = self.times.get(name, 0.0) + (t - self._t)
-        self._t = t
-
-
-def _mark(clock, name, device=None):
-    if clock is not None:
-        clock.mark(name, device)
+def _stage(clock, name, device):
+    """A device stage's synchronizing mark, recorded as a child of the
+    span it runs in (``tekken.device``)."""
+    mark(clock, name, device, child=True)
 
 
 def _tier(count: int, tiers) -> int:
@@ -182,7 +165,7 @@ def _flat_stage1(byts, lengths, n_words, wsize, wseed, clock):
         dig_run4 = (is_n[:, 3:] & is_n[:, 2:-1] & is_n[:, 1:-2]
                     & is_n[:, :-3]).any()
         if not bool(ws_run2 | dig_run4):
-            _mark(clock, "branch", dev)
+            _stage(clock, "branch", dev)
             return stage1_fused(byts, lengths, n_words, wsize, wseed)
     if is_ascii and byts.shape[1] <= GENERAL_MAX_ROW:
         bnd = ascii_boundaries(byts, lengths, "general")
@@ -190,7 +173,7 @@ def _flat_stage1(byts, lengths, n_words, wsize, wseed, clock):
         # UTF-8, or ASCII rows beyond the general rules' row bound: the
         # byte-level rules give the same flags on ASCII, for any length
         bnd = byte_boundaries(byts, lengths)
-    _mark(clock, "branch", dev)
+    _stage(clock, "branch", dev)
     plen, slot, ws = stage1_planes(byts, lengths, bnd, n_words, wsize, wseed)
     planes = (plen, slot, *ws) if n_words else (plen,)
     return tuple(to_i32(x) for x in planes)
@@ -222,7 +205,7 @@ def _flat_encode(byts, lengths, tables, NP: int, fb_len_limit: int, clock,
     plen = s1[0].to(i64)
     is_pstart = plen > 0
     multi = plen >= 2
-    _mark(clock, "stage1", dev)
+    _stage(clock, "stage1", dev)
 
     # --- word-exact whole-piece probe at every byte position ---
     if n_words:
@@ -244,7 +227,7 @@ def _flat_encode(byts, lengths, tables, NP: int, fb_len_limit: int, clock,
     mp_mark = multi & ~hit_start
     if host_merge:
         out = _host_spans(tok, mp_mark, idx, plen, NP, idx // R, B)
-        _mark(clock, "probe_emit", dev)
+        _stage(clock, "probe_emit", dev)
         return out
 
     # --- bucket build: misses of 2-4 / 5-8 / > 8 bytes to the P=4 / P=8 /
@@ -287,13 +270,13 @@ def _flat_encode(byts, lengths, tables, NP: int, fb_len_limit: int, clock,
     row_bad = torch.zeros(B + 1, dtype=torch.int32, device=dev)
     row_bad[torch.where(dropped, idx // R, B)] = 1
     row_bad = row_bad[:B]
-    _mark(clock, "probe_emit", dev)
+    _stage(clock, "probe_emit", dev)
 
     _merge_buckets(tok, w, byte_rank, s1[0], (n_t, n_s, n_l, n_lm),
                    (NP4, NP8, NP32), tables)
     tok = tok[:N]
     n_out = (tok >= 0).sum(dtype=torch.int32)
-    _mark(clock, "merge", dev)
+    _stage(clock, "merge", dev)
     return tok, n_out, fb_start, fb_len, overflow, row_bad
 
 
@@ -315,7 +298,7 @@ def _compact_encode(byts, lengths, tables, NP: int, route: int,
 
     if route == 3:
         bound = byte_boundaries(byts, lengths)
-        _mark(clock, "utf8_flags", dev)
+        _stage(clock, "utf8_flags", dev)
         st, pl, sl, *wsc, cnt = stage1_compact(
             byts, lengths, n_words, wsize, tables.wseed, rules="external",
             boundary=bound)
@@ -324,7 +307,7 @@ def _compact_encode(byts, lengths, tables, NP: int, route: int,
             byts, lengths, n_words, wsize, tables.wseed,
             rules="general" if route == 2 else "simple")
     cmax = int(cnt.max()) if B else 0
-    _mark(clock, "stage1", dev)
+    _stage(clock, "stage1", dev)
 
     valid = row_valid(byts, lengths).reshape(N)
     byte_rank = torch.where(valid, byts.reshape(N).to(i64), -1)
@@ -372,7 +355,7 @@ def _compact_encode(byts, lengths, tables, NP: int, route: int,
     tok[torch.where(src >= 0, pos, N)] = src
     if host_merge:
         out = _host_spans(tok, miss.reshape(-1), pos, plf, NP, pos // R, B)
-        _mark(clock, "probe_emit", dev)
+        _stage(clock, "probe_emit", dev)
         return out
 
     # --- bucket build: 2-3-byte misses go to the P23 tier, 4 / 5-8 / > 8
@@ -411,20 +394,20 @@ def _compact_encode(byts, lengths, tables, NP: int, route: int,
     row_bad = torch.zeros(B + 1, dtype=torch.int32, device=dev)
     row_bad[torch.where(dropped, pos // R, B)] = 1
     row_bad = row_bad[:B]
-    _mark(clock, "probe_emit", dev)
+    _stage(clock, "probe_emit", dev)
 
     if n_23:
         T = _tier(n_23, {64, max(64, NP3 // 64), max(64, NP3 // 16),
                          max(64, NP3 // 4), NP3})
         _p23_tier(tok, w[NPM:NPM + T], byte_rank, tables, N)
-    _mark(clock, "p23", dev)
+    _stage(clock, "p23", dev)
 
     # merge rows index the compact records: their geometry is (st, pl)
     _merge_buckets(tok, w, byte_rank, pl, (n_t, n_s, n_l, n_lm),
                    (NP4, NP8, NP32), tables, start=st)
     tok = tok[:N]
     n_out = (tok >= 0).sum(dtype=torch.int32)
-    _mark(clock, "merge", dev)
+    _stage(clock, "merge", dev)
 
     # fallback records (misses past the device-merge limit) sit in the
     # long bucket's rows
@@ -620,7 +603,7 @@ def piece_safe_segments(doc: str, budget: int) -> list[tuple[str, object]]:
 
 
 def splice_host_merges(out, out_pos, flat, fb_start, fb_len, merge_fn,
-                       base: int = 0):
+                       base: int = 0, clock=None):
     """Merge the recorded miss spans on the host and splice their tokens
     into the device token stream by position.
 
@@ -628,21 +611,26 @@ def splice_host_merges(out, out_pos, flat, fb_start, fb_len, merge_fn,
     flat: the flat input byte buffer; merge_fn(buf, starts, lens) ->
     (tokens back-to-back, counts) with byte_pair_merge semantics.  Token k
     of a span at start s gets position s + k (< s + len, so it never
-    collides with another piece's slots)."""
+    collides with another piece's slots).  The spans merged count toward
+    ``host_merge_spans``; ``clock`` records the merge and the sort as
+    spans."""
     sel = fb_start >= 0
     starts = fb_start[sel].astype(np.int64)
     if starts.size == 0:
         return out, out_pos
     lens = fb_len[sel].astype(np.int64)
-    toks, cnts = merge_fn(flat, base + starts, lens)
-    cnts = np.asarray(cnts, dtype=np.int64)
-    within = np.arange(len(toks), dtype=np.int64) - np.repeat(
-        np.cumsum(cnts) - cnts, cnts)
-    pos = np.repeat(starts, cnts) + within
-    out = np.concatenate([out, np.asarray(toks, out.dtype)])
-    out_pos = np.concatenate([out_pos, pos.astype(out_pos.dtype)])
-    o = np.argsort(out_pos, kind="stable")
-    return out[o], out_pos[o]
+    with span("tekken.splice.merge", clock):
+        toks, cnts = merge_fn(flat, base + starts, lens)
+    COUNTERS.add("host_merge_spans", starts.size)
+    with span("tekken.splice.sort", clock):
+        cnts = np.asarray(cnts, dtype=np.int64)
+        within = np.arange(len(toks), dtype=np.int64) - np.repeat(
+            np.cumsum(cnts) - cnts, cnts)
+        pos = np.repeat(starts, cnts) + within
+        out = np.concatenate([out, np.asarray(toks, out.dtype)])
+        out_pos = np.concatenate([out_pos, pos.astype(out_pos.dtype)])
+        o = np.argsort(out_pos, kind="stable")
+        return out[o], out_pos[o]
 
 
 def oracle_merge_fn(ranks):
@@ -674,9 +662,11 @@ class PackedEncoder:
     splices.  Rows whose pieces overflowed a bucket are re-encoded by the
     host engine.
 
-    ``stats`` holds counts of the last ``encode_batch``: the rows
-    re-encoded on the host after a bucket overflow and the spans merged
-    and spliced on the host."""
+    ``stats`` holds the last ``encode_batch``'s increments of
+    ``utils.timing.COUNTERS``: the rows re-encoded on the host after a
+    bucket overflow and the spans merged and spliced on the host.
+    ``clock`` (a ``StageClock``, measurement only) records the stage marks
+    and the layers' spans."""
 
     def __init__(self, tokenizer, rows: int = 64, row_len: int = 1024,
                  np_cap: int | None = None, device="cuda",
@@ -711,14 +701,22 @@ class PackedEncoder:
         return buf, lengths
 
     def encode_batch(self, texts, clock=None):
-        self.stats = {"overflow_rows": 0, "fb_spans": 0}
-        buf, lengths = self.pack(texts)
-        routes = doc_routes(buf)[:len(texts)]
-        distinct = sorted(set(routes.tolist())) if len(texts) else [1]
-        _mark(clock, "route_pack")
+        before = dict(COUNTERS.totals)
+        try:
+            return self._encode_routes(texts, clock)
+        finally:
+            self.stats = COUNTERS.since(before)
+
+    def _encode_routes(self, texts, clock):
+        with span("tekken.pack", clock):
+            buf, lengths = self.pack(texts)
+            routes = doc_routes(buf)[:len(texts)]
+            distinct = sorted(set(routes.tolist())) if len(texts) else [1]
+            mark(clock, "route_pack")
+            route = host_route(buf) if len(distinct) <= 1 else None
         if len(distinct) <= 1:
-            return self._encode_buffer(buf, lengths, len(texts),
-                                       host_route(buf), clock)
+            return self._encode_buffer(buf, lengths, len(texts), route,
+                                       clock)
         result: list[list[int] | None] = [None] * len(texts)
         for r in distinct:
             idx = np.flatnonzero(routes == r)
@@ -727,12 +725,13 @@ class PackedEncoder:
                 Bg <<= 1
             Bg = min(Bg, self._B)
             for lo in range(0, idx.size, Bg):
-                sel = idx[lo:lo + Bg]
-                sub_buf = np.zeros((Bg, self._R), dtype=np.uint8)
-                sub_buf[:sel.size] = buf[sel]
-                sub_len = np.zeros(Bg, dtype=np.int32)
-                sub_len[:sel.size] = lengths[sel]
-                _mark(clock, "route_pack")
+                with span("tekken.pack", clock):
+                    sel = idx[lo:lo + Bg]
+                    sub_buf = np.zeros((Bg, self._R), dtype=np.uint8)
+                    sub_buf[:sel.size] = buf[sel]
+                    sub_len = np.zeros(Bg, dtype=np.int32)
+                    sub_len[:sel.size] = lengths[sel]
+                    mark(clock, "route_pack")
                 sub_out = self._encode_buffer(sub_buf, sub_len, sel.size,
                                               int(r), clock)
                 for j, i in enumerate(sel):
@@ -748,35 +747,42 @@ class PackedEncoder:
         np_cap = (self._np_cap if Bg == self._B
                   else max(64, self._np_cap * Bg // self._B))
         dev = self._device
-        byts = torch.from_numpy(buf).to(dev)
-        lens = torch.from_numpy(lengths).to(dev)
-        _mark(clock, "upload", dev)
-        tok, _, fb_start, fb_len, overflow, row_bad = packed_encode(
-            byts, lens, self._tables, route, np_cap, clock=clock,
-            host_merge=self._host_merge)
-        tok = tok.cpu().numpy()
-        fb_start = fb_start.cpu().numpy()
-        fb_len = fb_len.cpu().numpy()
-        bad_rows = (set(np.flatnonzero(row_bad.cpu().numpy()).tolist())
-                    if overflow else set())
-        _mark(clock, "readback", dev)
+        with span("tekken.upload", clock):
+            byts = torch.from_numpy(buf).to(dev)
+            lens = torch.from_numpy(lengths).to(dev)
+            mark(clock, "upload", dev)
+        with span("tekken.device", clock):
+            tok, _, fb_start, fb_len, overflow, row_bad = packed_encode(
+                byts, lens, self._tables, route, np_cap, clock=clock,
+                host_merge=self._host_merge)
+        with span("tekken.readback", clock):
+            back = [t.cpu() for t in ((tok, fb_start, fb_len, row_bad)
+                                      if overflow else
+                                      (tok, fb_start, fb_len))]
+            COUNTERS.add("readback_bytes", sum(t.nbytes for t in back))
+            tok, fb_start, fb_len = (t.numpy() for t in back[:3])
+            bad_rows = (set(np.flatnonzero(back[3].numpy()).tolist())
+                        if overflow else set())
+            mark(clock, "readback", dev)
 
-        out_pos = np.flatnonzero(tok >= 0).astype(np.int64)
-        out = tok[out_pos]
+        with span("tekken.doc_lists", clock):
+            out_pos = np.flatnonzero(tok >= 0).astype(np.int64)
+            out = tok[out_pos]
         out, out_pos = splice_host_merges(
-            out, out_pos, buf.reshape(-1), fb_start, fb_len, self._merge_fn)
-        self.stats["fb_spans"] += int((fb_start >= 0).sum())
-        self.stats["overflow_rows"] += len(bad_rows)
-
-        rows = out_pos // self._R
-        cut = np.searchsorted(rows, np.arange(n_docs + 1))
-        result = []
-        for i in range(n_docs):
-            if i in bad_rows:
-                data = buf[i, :lengths[i]].tobytes()
-                result.append(self._tokenizer._host_ranks(
-                    data.decode("utf-8")))
-            else:
-                result.append(out[cut[i]:cut[i + 1]].tolist())
-        _mark(clock, "splice")
+            out, out_pos, buf.reshape(-1), fb_start, fb_len, self._merge_fn,
+            clock=clock)
+        with span("tekken.doc_lists", clock):
+            rows = out_pos // self._R
+            cut = np.searchsorted(rows, np.arange(n_docs + 1))
+            result = [None if i in bad_rows else
+                      out[cut[i]:cut[i + 1]].tolist() for i in range(n_docs)]
+        if bad_rows:
+            with span("tekken.overflow_rows", clock):
+                COUNTERS.add("overflow_rows", len(bad_rows))
+                for i in sorted(bad_rows):
+                    if i < n_docs:
+                        data = buf[i, :lengths[i]].tobytes()
+                        result[i] = self._tokenizer._host_ranks(
+                            data.decode("utf-8"))
+        mark(clock, "splice")
         return result

@@ -43,6 +43,7 @@ from .special_tokens import (
     SpecialTokens,
     get_deprecated_special_tokens,
 )
+from .utils.timing import COUNTERS, mark, span
 from .vocab import (
     CuckooPairTable,
     CuckooPieceTable,
@@ -312,39 +313,48 @@ class Tekkenizer:
         piece_safe_segments``): its segments run as rows of the same
         sub-batches, the pieces that cannot be cut are merged on the host,
         piece by piece (``_host_merge_fn``), and its ids are their
-        concatenation in order.  ``clock`` (an ops.packed.StageClock,
-        measurement only) records the wall time of each pipeline stage."""
-        rows, plans = self._cut_oversize(texts)
-        stats = {"overflow_rows": 0, "fb_spans": 0}
-        rank_lists: list[list[int]] = []
-        for sub in self._row_batches(rows):
-            enc = self._get_packed_encoder(sub)
-            rank_lists += enc.encode_batch(sub, clock=clock)
-            for k in stats:
-                stats[k] += enc.stats[k]
-        self._last_batch_stats = stats
-        self._last_engine = "packed-device"
-        if plans is not None:
-            rank_lists = [[r for part in plan for r in (
-                rank_lists[part] if isinstance(part, int) else part)]
-                for plan in plans]
-        out = [self._with_specials(r, add_beginning_of_sequence,
-                                   add_end_of_sequence) for r in rank_lists]
-        if clock is not None:
-            clock.mark("public_ids")
-        return out
+        concatenation in order.  ``clock`` (a ``utils.timing.StageClock``,
+        measurement only) records the wall time of each pipeline stage and
+        the spans of the layers, ``tekken.encode_batch`` their root."""
+        with span("tekken.encode_batch", clock) as root:
+            before = dict(COUNTERS.totals)
+            COUNTERS.add("encode_calls", 1)
+            with span("tekken.plan", clock):
+                rows, plans, n_bytes = self._cut_oversize(texts)
+                batches = self._row_batches(rows)
+            if root is not None:
+                root.attrs.update(docs=len(texts), bytes=n_bytes)
+            rank_lists: list[list[int]] = []
+            for sub in batches:
+                with span("tekken.plan", clock):
+                    enc = self._get_packed_encoder(sub)
+                rank_lists += enc.encode_batch(sub, clock=clock)
+            self._last_batch_stats = COUNTERS.since(before)
+            self._last_engine = "packed-device"
+            with span("tekken.public_ids", clock):
+                if plans is not None:
+                    rank_lists = [[r for part in plan for r in (
+                        rank_lists[part] if isinstance(part, int) else part)]
+                        for plan in plans]
+                out = [self._with_specials(r, add_beginning_of_sequence,
+                                           add_end_of_sequence)
+                       for r in rank_lists]
+                mark(clock, "public_ids")
+            return out
 
     def _cut_oversize(self, texts):
-        """(rows, plans).  Without a doc over MAX_BATCH_BYTES / 8 bytes the
-        rows are ``texts`` and plans is None.  Otherwise each such doc is
-        cut into piece-safe segments (the plan of CorpusEncoder.
-        encode_stream): a segment that fits becomes a row, the pieces that
-        do not are merged on the host now; a doc's plan lists, in order,
-        the indices of its rows and the host-merged rank lists."""
+        """(rows, plans, n_bytes), n_bytes the UTF-8 bytes of ``texts``.
+        Without a doc over MAX_BATCH_BYTES / 8 bytes the rows are ``texts``
+        and plans is None.  Otherwise each such doc is cut into piece-safe
+        segments (the plan of CorpusEncoder.encode_stream): a segment that
+        fits becomes a row, the pieces that do not are merged on the host
+        now; a doc's plan lists, in order, the indices of its rows and the
+        host-merged rank lists."""
         budget = MAX_BATCH_BYTES // 8
-        over = [len(t.encode("utf-8")) > budget for t in texts]
+        sizes = [len(t.encode("utf-8")) for t in texts]
+        over = [n > budget for n in sizes]
         if not any(over):
-            return texts, None
+            return texts, None, sum(sizes)
         from .ops.packed import piece_safe_segments
 
         rows: list[str] = []
@@ -363,7 +373,7 @@ class Tekkenizer:
                     plan.append(self._merge_pieces(
                         [val] if kind == "h" else val))
             plans.append(plan)
-        return rows, plans
+        return rows, plans, sum(sizes)
 
     def _merge_pieces(self, pieces: list[str]) -> list[int]:
         """The ranks of pre-tokenization pieces, each merged on its own on
@@ -387,8 +397,9 @@ class Tekkenizer:
 
     @property
     def last_batch_stats(self) -> dict:
-        """Counts of the last encode_batch: rows re-encoded on the host
-        after a bucket overflow, spans merged and spliced on the host."""
+        """Counts of the last encode_batch (a view of its increments of
+        ``utils.timing.COUNTERS``): rows re-encoded on the host after a
+        bucket overflow, spans merged and spliced on the host."""
         return self._last_batch_stats
 
     def _get_packed_encoder(self, texts):

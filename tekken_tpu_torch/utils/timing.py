@@ -1,17 +1,31 @@
-"""Timing meters and profiling helpers.
+"""Timing meters, and the spans and counters of the encode path.
 
 The reference has no tracer; its profiling lives in ad-hoc test timers
 (reference: tests/test_full_vocab_profile.rs:8-66,
 tests/test_detailed_profile.rs:10-89).  Here: throughput meters, a named
-stage timer, and a ``torch.profiler`` trace context.
+stage timer, and the encode path's recorder:
+
+- ``StageClock``, passed down ``Tekkenizer.encode_batch(clock=...)``:
+  synchronizing stage marks (``clock.times``) and, in memory, the
+  ``span`` records of each layer (``clock.spans``), their self times added
+  to ``clock.times`` under the span's name;
+- ``span(name, clock)``, a layer boundary: a record on the clock, and a
+  ``record_function`` range of the same name while ``torch.profiler``
+  runs, so that the device trace charges the host's time to the layer;
+  with neither, a flag check and a shared null context;
+- ``COUNTERS``, the process-wide counts of the work done (kernel launches,
+  encode calls, host-merged spans, overflow rows, readback bytes).
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import itertools
 import time
 from dataclasses import dataclass, field
+
+import torch
+from torch.autograd import profiler as _profiler
 
 
 @dataclass
@@ -57,23 +71,6 @@ class Meter:
         }
 
 
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """``torch.profiler`` trace of the block: host ops, and the CUDA
-    kernels where torch sees a GPU; written as a Chrome trace to
-    ``log_dir/trace.json`` (chrome://tracing or Perfetto)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield prof
-    os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
 @dataclass
 class StageTimer:
     """Named stage timer, mirroring the reference's stepwise loading
@@ -94,3 +91,177 @@ class StageTimer:
                  for n, s in self.stages]
         lines.append(f"{'total':<28s} {total*1e3:9.2f} ms")
         return "\n".join(lines)
+
+
+# --------------------------------------------------------------------- #
+# counters
+# --------------------------------------------------------------------- #
+
+class Counters:
+    """The process-wide counts of the encode path's work, added where the
+    work happens.  ``launches`` counts kernel launches by kernel name
+    (``_build.LAUNCHES`` is this dict); ``totals`` holds:
+
+    - ``encode_calls``: ``Tekkenizer.encode_batch`` calls;
+    - ``host_merge_spans``: misses merged on the host in
+      ``splice_host_merges``;
+    - ``overflow_rows``: rows re-encoded on the host after a bucket
+      overflowed;
+    - ``readback_bytes``: bytes of the tensors ``PackedEncoder`` reads
+      back from the device.
+
+    A call's own counts are the difference of ``totals`` across it:
+    ``since`` gives them as ``PackedEncoder.stats`` and
+    ``Tekkenizer.last_batch_stats`` show them."""
+
+    NAMES = ("encode_calls", "host_merge_spans", "overflow_rows",
+             "readback_bytes")
+
+    def __init__(self):
+        self.launches: dict[str, int] = {}
+        self.totals: dict[str, int] = dict.fromkeys(self.NAMES, 0)
+
+    def add(self, name: str, n: int) -> None:
+        self.totals[name] += n
+
+    def since(self, before: dict[str, int]) -> dict[str, int]:
+        """The rows re-encoded on the host and the spans merged on the host
+        since ``before``, a copy of ``totals``."""
+        return {"overflow_rows": (self.totals["overflow_rows"]
+                                  - before["overflow_rows"]),
+                "fb_spans": (self.totals["host_merge_spans"]
+                             - before["host_merge_spans"])}
+
+
+COUNTERS = Counters()
+
+
+# --------------------------------------------------------------------- #
+# spans
+# --------------------------------------------------------------------- #
+
+_CALL_IDS = itertools.count(1)
+
+
+@dataclass(slots=True)
+class SpanRecord:
+    """One span: times in ns on the profiler's host clock (Unix epoch),
+    ``parent`` the id (index in ``clock.spans``) of the span that opened
+    it, ``call`` shared by every span under one root span."""
+
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int | None
+    call: int
+    attrs: dict
+    child_ns: int = 0
+
+    @property
+    def self_ns(self) -> int:
+        """The duration less the part its child spans cover."""
+        return self.end_ns - self.start_ns - self.child_ns
+
+
+class StageClock:
+    """The encode path's recorder, for measurement only; pass none on the
+    production path.
+
+    ``mark(name)`` adds the wall time since the previous mark to
+    ``times[name]``, synchronizing the device first, so a stage's time
+    includes its device work.  ``span`` records go to ``spans``, stamped
+    on the profiler's host clock from one (Unix, perf-counter) anchor, and
+    each span's self time is added to ``times`` under its name; a stage
+    mark made with ``child=True`` inside a span is also recorded as that
+    span's child."""
+
+    def __init__(self):
+        self.times: dict[str, float] = {}
+        self.spans: list[SpanRecord] = []
+        self._open: list[SpanRecord] = []
+        self._anchor = time.time_ns() - time.perf_counter_ns()
+        self._t = time.perf_counter_ns()
+
+    def _now_ns(self) -> int:
+        return self._anchor + time.perf_counter_ns()
+
+    def mark(self, name: str, device=None, child: bool = False) -> None:
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter_ns()
+        self.times[name] = self.times.get(name, 0.0) + (t - self._t) * 1e-9
+        if child and self._open:
+            parent = self._open[-1]
+            start = max(self._anchor + self._t, parent.start_ns)
+            rec = self._record(name, start, parent)
+            rec.end_ns = self._anchor + t
+            parent.child_ns += rec.end_ns - start
+        self._t = t
+
+    def _record(self, name: str, start_ns: int,
+                parent: SpanRecord | None) -> SpanRecord:
+        rec = SpanRecord(len(self.spans), name, start_ns, start_ns,
+                         parent.id if parent else None,
+                         parent.call if parent else next(_CALL_IDS), {})
+        self.spans.append(rec)
+        return rec
+
+    def _enter(self, name: str) -> SpanRecord:
+        rec = self._record(name, self._now_ns(),
+                           self._open[-1] if self._open else None)
+        self._open.append(rec)
+        return rec
+
+    def _exit(self, rec: SpanRecord) -> None:
+        rec.end_ns = self._now_ns()
+        self._open.pop()
+        if rec.parent is not None:
+            self.spans[rec.parent].child_ns += rec.end_ns - rec.start_ns
+        self.times[rec.name] = (self.times.get(rec.name, 0.0)
+                                + rec.self_ns * 1e-9)
+
+
+def mark(clock: StageClock | None, name: str, device=None,
+         child: bool = False) -> None:
+    if clock is not None:
+        clock.mark(name, device, child)
+
+
+class _Span:
+    __slots__ = ("name", "clock", "rec", "rf")
+
+    def __init__(self, name: str, clock: StageClock | None):
+        self.name, self.clock, self.rec, self.rf = name, clock, None, None
+
+    def __enter__(self) -> SpanRecord | None:
+        # the record encloses the range: the profiler stamps a range's
+        # start early in its entry, which can take a millisecond
+        if self.clock is not None:
+            self.rec = self.clock._enter(self.name)
+        if _profiler._is_profiler_enabled:
+            self.rf = _profiler.record_function(self.name)
+            self.rf.__enter__()
+        return self.rec
+
+    def __exit__(self, *exc) -> bool:
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        if self.rec is not None:
+            self.clock._exit(self.rec)
+        return False
+
+
+_NULL_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, clock: StageClock | None = None):
+    """A layer boundary, as a context manager: a record on ``clock`` (its
+    ``SpanRecord``, or None, is what ``with`` binds) and, while
+    ``torch.profiler`` runs, a ``record_function`` range of the same name.
+    A span opened with no span open on its clock starts a new call id.
+    With no clock and no profiler it records nothing and allocates
+    nothing."""
+    if clock is None and not _profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return _Span(name, clock)

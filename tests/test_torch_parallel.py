@@ -29,7 +29,7 @@ import tekken_tpu_torch as tt
 from tekken_tpu_torch.parallel.corpus import CorpusEncoder, find_shards
 from tekken_tpu_torch.parallel.encode import DistributedEncoder
 from tekken_tpu_torch.parallel.mesh import dp_sharded, make_dp_mesh
-from tekken_tpu_torch.utils.timing import Meter, StageTimer, device_trace
+from tekken_tpu_torch.utils.timing import Meter, StageTimer
 
 R = 256
 
@@ -353,10 +353,3 @@ def test_meter_and_stage_timer():
     rep = t.report()
     assert "a" in rep and "b" in rep and "total" in rep
     assert [n for n, _ in t.stages] == ["a", "b"]
-
-
-def test_device_trace_writes_chrome_trace(tmp_path):
-    with device_trace(str(tmp_path / "trace")):
-        torch.ones(64).cumsum(0)
-    data = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert data["traceEvents"]
