@@ -259,7 +259,7 @@ struct Buckets {
 };
 
 // PTOP: the largest P of the call's buckets, 8 or 32, so that a call
-// without the P=32 bucket (the default device-merge limit) runs an
+// without the P=32 bucket (no miss over 8 bytes to merge) runs an
 // instantiation that holds no 16- or 32-lane row
 template <int PTOP>
 __global__ void __launch_bounds__(kThreads)

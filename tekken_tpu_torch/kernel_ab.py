@@ -64,7 +64,9 @@ def load_other(root: str):
 def merge_turns(cs, tok, batches, packed_mod, other) -> dict:
     """The clocked ``merge`` stage of each checkout's ``packed_encode`` on
     the route-1 batch, routed and flat, in turns (the median of MERGE_REPS
-    calls each), and the device time of the merge launches of one call."""
+    calls each), and the device time of the merge launches of one call.
+    Each call replays the arguments ``_encode_buffer`` passed, its
+    device-merge limit included."""
     o_packed = importlib.import_module(f"{other.__name__}.ops.packed")
     texts = batches["route1_bench"]
     enc = tok._get_packed_encoder(texts)
@@ -73,11 +75,12 @@ def merge_turns(cs, tok, batches, packed_mod, other) -> dict:
     for label, route in (("route1_bench", 1), ("flat_route1_bench", None)):
         with cs.Capture(packed_mod, "packed_encode") as cap:
             enc._encode_buffer(buf, lens, len(texts), route)
-        args = cap.calls[0][0]
-        want = packed_mod.packed_encode(*args)
+        args, kw = cap.calls[0]
+        kw = {k: v for k, v in kw.items() if k != "clock"}
+        want = packed_mod.packed_encode(*args, **kw)
         fns = {}
         for who, mod in (("other", o_packed), ("this", packed_mod)):
-            got = mod.packed_encode(*args)
+            got = mod.packed_encode(*args, **kw)
             for k, (g, w) in enumerate(zip(got, want)):
                 if not torch.equal(torch.as_tensor(g), torch.as_tensor(w)):
                     raise AssertionError(f"{who} packed_encode {label} output "
@@ -85,7 +88,7 @@ def merge_turns(cs, tok, batches, packed_mod, other) -> dict:
 
             def stage(mod=mod):
                 clock = mod.StageClock()
-                mod.packed_encode(*args, clock=clock)
+                mod.packed_encode(*args, **kw, clock=clock)
                 return clock.times["merge"] * 1e3
             fns[who] = stage
 
@@ -97,7 +100,7 @@ def merge_turns(cs, tok, batches, packed_mod, other) -> dict:
         row = {"other_ms": [o1, o2], "this_ms": [t1, t2]}
         for who, mod in (("other", o_packed), ("this", packed_mod)):
             row[f"{who}_device_ms"] = cs.device_ms(
-                lambda mod=mod: mod.packed_encode(*args), "merge_", 5)
+                lambda mod=mod: mod.packed_encode(*args, **kw), "merge_", 5)
         cs.log(f"[ab] merge stage {label}: other {o1:.4f} {o2:.4f} ms, this "
                f"{t1:.4f} {t2:.4f} ms; merge kernels' device time a call: "
                f"other {row['other_device_ms']:.5f} ms, this "

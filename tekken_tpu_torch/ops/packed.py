@@ -16,12 +16,18 @@ buffer of document rows goes through:
    4, 5-8, > 8 bytes) and written into disjoint row ranges of one table;
 4. the P23 tier: 2-3-byte misses resolve with one dense-table gather and
    one cuckoo probe;
-5. the merge buckets: 4-byte and 5-8-byte misses (and longer ones up to
-   ``fb_len_limit``) merge in (rows, P) compact-shift matrices through the
-   merge kernel (ops/merge.py);
+5. the merge buckets: 4-byte and 5-8-byte misses, and longer ones up to
+   ``fb_len_limit``, merge in (rows, P) compact-shift matrices through the
+   merge kernel (ops/merge.py), the longer ones in the P=32 bucket;
 6. on the host: misses longer than ``fb_len_limit`` are merged and
    spliced at their spans, and rows whose pieces overflowed a bucket are
    re-encoded exactly.
+
+``packed_encode``'s limit defaults to the JAX package's, 8 bytes.
+``PackedEncoder`` passes ``P_LANES`` (32): the merge kernel runs every
+bucket of a call in one launch and a row's rounds in one thread, so a
+9-32-byte miss costs one row of the P=32 bucket; only longer misses reach
+the host's merge.
 
 The flat path runs at byte granularity with no compaction: a branch
 chain picks the stage-1 rules for the whole buffer (the fused stage-1
@@ -245,9 +251,11 @@ def _flat_encode(byts, lengths, tables, NP: int, fb_len_limit: int, clock,
     NP32 = max(64, NP // 8)
     NPT = NP4 + NP8 + NP32
     fb_piece = long_ & (plen > fb_len_limit)
-    n_t, n_s, n_l, n_lm = torch.stack([
-        tiny.sum(), short.sum(), long_.sum(),
-        (long_ & (plen <= fb_len_limit)).sum()]).tolist()
+    mergeable = long_ & ~fb_piece
+    n_t, n_s, n_l, n_lm, n_ld = torch.stack([
+        tiny.sum(), short.sum(), long_.sum(), mergeable.sum(),
+        (mergeable & (id_l < NP32)).sum()]).tolist()
+    COUNTERS.add("device_long_rows", n_ld)
     overflow = int(n_t > NP4 or n_s > NP8 or n_l > NP32)
 
     tgt_row = torch.where(
@@ -372,9 +380,11 @@ def _compact_encode(byts, lengths, tables, NP: int, route: int,
         return torch.cumsum(m.to(i64), 0) - 1
 
     id_23, id_t, id_s, id_l = ids(m23f), ids(tinym), ids(shortm), ids(longm)
-    n_23, n_t, n_s, n_l, n_lm = torch.stack([
-        m23f.sum(), tinym.sum(), shortm.sum(), longm.sum(),
-        (longm & (plf <= fb_len_limit)).sum()]).tolist()
+    mergeable = longm & ~fb_piece
+    n_23, n_t, n_s, n_l, n_lm, n_ld = torch.stack([
+        m23f.sum(), tinym.sum(), shortm.sum(), longm.sum(), mergeable.sum(),
+        (mergeable & (id_l < NP32)).sum()]).tolist()
+    COUNTERS.add("device_long_rows", n_ld)
     overflow = int(n_23 > NP3 or n_t > NP4 or n_s > NP8 or n_l > NP32)
 
     tgt_row = torch.where(
@@ -654,9 +664,9 @@ class PackedEncoder:
     runs in a power-of-two sub-batch of its own, so one UTF-8 doc does not
     send a whole batch down the slower route.
 
-    ``merge="device"`` (default) merges misses on the device in the
-    length buckets (the few past the device-merge limit are merged on the
-    host by the oracle, as the JAX package does); ``merge="host"`` has the
+    ``merge="device"`` (default) merges misses of up to ``P_LANES`` (32)
+    bytes on the device in the length buckets (the rare longer ones are
+    merged on the host by the oracle); ``merge="host"`` has the
     device record every miss as a span, which the host merges with the
     tokenizer's host engine (the native engine's ``merge_spans``) and
     splices.  Rows whose pieces overflowed a bucket are re-encoded by the
@@ -664,7 +674,8 @@ class PackedEncoder:
 
     ``stats`` holds the last ``encode_batch``'s increments of
     ``utils.timing.COUNTERS``: the rows re-encoded on the host after a
-    bucket overflow and the spans merged and spliced on the host.
+    bucket overflow, the spans merged and spliced on the host and the
+    long bucket's rows merged on the device.
     ``clock`` (a ``StageClock``, measurement only) records the stage marks
     and the layers' spans."""
 
@@ -683,7 +694,7 @@ class PackedEncoder:
         self._tokenizer = tokenizer   # the host engine of overflow rows
         self._merge_fn = (tokenizer._host_merge_fn() if self._host_merge
                           else oracle_merge_fn(tokenizer.ranks))
-        self.stats = {"overflow_rows": 0, "fb_spans": 0}
+        self.stats = dict.fromkeys(COUNTERS.VIEWS, 0)
 
     def pack(self, texts):
         datas = [t.encode("utf-8") for t in texts]
@@ -753,7 +764,8 @@ class PackedEncoder:
             mark(clock, "upload", dev)
         with span("tekken.device", clock):
             tok, _, fb_start, fb_len, overflow, row_bad = packed_encode(
-                byts, lens, self._tables, route, np_cap, clock=clock,
+                byts, lens, self._tables, route, np_cap,
+                fb_len_limit=P_LANES, clock=clock,
                 host_merge=self._host_merge)
         with span("tekken.readback", clock):
             back = [t.cpu() for t in ((tok, fb_start, fb_len, row_bad)

@@ -399,7 +399,9 @@ class Tekkenizer:
     def last_batch_stats(self) -> dict:
         """Counts of the last encode_batch (a view of its increments of
         ``utils.timing.COUNTERS``): rows re-encoded on the host after a
-        bucket overflow, spans merged and spliced on the host."""
+        bucket overflow (``overflow_rows``), spans merged and spliced on the
+        host (``fb_spans``), misses over 8 bytes merged on the device
+        (``device_long_rows``)."""
         return self._last_batch_stats
 
     def _get_packed_encoder(self, texts):

@@ -14,7 +14,8 @@ stage timer, and the encode path's recorder:
   runs, so that the device trace charges the host's time to the layer;
   with neither, a flag check and a shared null context;
 - ``COUNTERS``, the process-wide counts of the work done (kernel launches,
-  encode calls, host-merged spans, overflow rows, readback bytes).
+  encode calls, host-merged spans, device-merged long misses, overflow
+  rows, readback bytes).
 """
 
 from __future__ import annotations
@@ -105,6 +106,8 @@ class Counters:
     - ``encode_calls``: ``Tekkenizer.encode_batch`` calls;
     - ``host_merge_spans``: misses merged on the host in
       ``splice_host_merges``;
+    - ``device_long_rows``: misses over 8 bytes merged on the device, in
+      the long (P=32) merge bucket of ``packed_encode``;
     - ``overflow_rows``: rows re-encoded on the host after a bucket
       overflowed;
     - ``readback_bytes``: bytes of the tensors ``PackedEncoder`` reads
@@ -114,8 +117,11 @@ class Counters:
     ``since`` gives them as ``PackedEncoder.stats`` and
     ``Tekkenizer.last_batch_stats`` show them."""
 
-    NAMES = ("encode_calls", "host_merge_spans", "overflow_rows",
-             "readback_bytes")
+    NAMES = ("encode_calls", "host_merge_spans", "device_long_rows",
+             "overflow_rows", "readback_bytes")
+    # the per-call views' keys and the totals they read
+    VIEWS = {"overflow_rows": "overflow_rows", "fb_spans": "host_merge_spans",
+             "device_long_rows": "device_long_rows"}
 
     def __init__(self):
         self.launches: dict[str, int] = {}
@@ -125,12 +131,11 @@ class Counters:
         self.totals[name] += n
 
     def since(self, before: dict[str, int]) -> dict[str, int]:
-        """The rows re-encoded on the host and the spans merged on the host
-        since ``before``, a copy of ``totals``."""
-        return {"overflow_rows": (self.totals["overflow_rows"]
-                                  - before["overflow_rows"]),
-                "fb_spans": (self.totals["host_merge_spans"]
-                             - before["host_merge_spans"])}
+        """The rows re-encoded on the host, the spans merged on the host
+        and the long bucket's rows merged on the device since ``before``, a
+        copy of ``totals``."""
+        return {view: self.totals[name] - before[name]
+                for view, name in self.VIEWS.items()}
 
 
 COUNTERS = Counters()

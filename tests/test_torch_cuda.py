@@ -431,6 +431,52 @@ def test_encode_batch_on_the_card(dev, tok):
         assert g == [r + 100 for r in encode_ranks(s, t.ranks)], s
 
 
+MULTILINGUAL = ("café naïve über 中文 日本語 \U0001f600 Ελληνικά Русский "
+                "mañana 한국어 \U0001f680\U0001f389").split()
+
+
+def test_encode_batch_merges_long_misses_on_the_card(dev, tok, monkeypatch):
+    """A batch like the benchmark's multilingual corpus (vocabulary words,
+    2.5% OOV words of 3-14 letters, 10% words of other scripts): every
+    miss of 9-32 bytes merges in the P=32 bucket on the card, one merge
+    launch a packed encode call; none is spliced on the host; every doc
+    equals the oracle."""
+    from tekken_tpu_torch.ops import packed
+    from tekken_tpu_torch.oracle import pretokenize
+
+    t, words = tok
+    rng = random.Random(29)
+
+    def word():
+        u = rng.random()
+        if u < 0.1:
+            return rng.choice(MULTILINGUAL)
+        if u < 0.125:
+            return "".join(rng.choice(string.ascii_lowercase) for _ in range(
+                rng.randint(3, 8) if u < 0.12 else rng.randint(9, 14)))
+        return rng.choice(words)
+    texts = [" ".join(word() for _ in range(250)) for _ in range(64)]
+    calls = []
+    real = packed.packed_encode
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(packed, "packed_encode", spy)
+    _build.reset_launches()
+    got = t.encode_batch(texts)
+    torch.cuda.synchronize()
+    stats = t.last_batch_stats
+    assert calls and _build.LAUNCHES["merge_rows"] == len(calls)
+    assert stats["fb_spans"] == 0 and stats["overflow_rows"] == 0
+    # a vocab token the word map misses counts too
+    n_long = sum(9 <= len(b) <= 32 and b not in t.ranks for s in texts
+                 for b in (p.encode() for p in pretokenize(s)))
+    assert stats["device_long_rows"] >= n_long > 500
+    for s, g in zip(texts, got):
+        assert g == [r + 100 for r in encode_ranks(s, t.ranks)], s
+
+
 def test_host_merge_and_world1_encode_on_the_card(dev, tok):
     """Host-merge mode launches stage 1 and no merge; a world-of-one
     DistributedEncoder on the card; both equal the oracle."""

@@ -182,10 +182,10 @@ def _miss_texts(n):
 @pytest.mark.parametrize("merge", ["host", "device"])
 def test_packed_encoder_uses_the_native_engine(merged_tokenizer, monkeypatch,
                                                merge):
-    """Host mode merges its spans with merge_spans (device mode keeps the
-    oracle's merge, as the JAX package does); overflow rows (a capacity of
-    4 spans or bucket rows) are re-encoded by the native engine; every doc
-    equals the JAX package's."""
+    """Host mode merges its spans with merge_spans (device mode merges its
+    misses over 32 bytes, the 300-byte piece of TEXTS, with the oracle);
+    overflow rows (a capacity of 4 spans or bucket rows) are re-encoded by
+    the native engine; every doc equals the JAX package's."""
     from tekken_tpu_torch.ops.packed import PackedEncoder
 
     port = _port(merged_tokenizer)
@@ -199,6 +199,8 @@ def test_packed_encoder_uses_the_native_engine(merged_tokenizer, monkeypatch,
     assert (enc._merge_fn is native.merge_spans) == (merge == "host")
     assert enc.encode_batch(texts) == want
     assert enc.stats["fb_spans"] > 0 and enc.stats["overflow_rows"] == 0
+    # the 9-byte misses (" " and 8 letters) merge on the device
+    assert (enc.stats["device_long_rows"] > 0) == (merge == "device")
     assert (spans.calls > 0) == (merge == "host")
     assert encodes.calls == 0
     small = PackedEncoder(port, rows=16, row_len=512, device="cpu",

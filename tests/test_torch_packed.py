@@ -13,6 +13,7 @@ import tekken_tpu_torch as tt
 import tekken_tpu_torch.ops.packed as tpacked
 from tekken_tpu.oracle import encode_ranks, pretokenize
 from tekken_tpu_torch.ops.packed import packed_encode, splice_host_merges
+from tekken_tpu_torch.utils.timing import StageClock
 
 
 @pytest.fixture(scope="module")
@@ -148,10 +149,8 @@ def test_encode_batch_matches_jax_and_oracle(toks):
     assert port.encode_batch([]) == tok.encode_batch([]) == []
 
 
-def test_encode_batch_runs_merge_buckets_and_splice(toks, monkeypatch):
-    """4-8-byte misses reach the P=4 and P=8 merge buckets; 9+-byte misses
-    are merged and spliced on the host."""
-    tok, port = toks
+def _spy_buckets(monkeypatch):
+    """The P of every merge bucket tier run, in order."""
     seen = []
     real = tpacked.merge_buckets
 
@@ -160,14 +159,116 @@ def test_encode_batch_runs_merge_buckets_and_splice(toks, monkeypatch):
         return real(tok, w, byte_rank, plen, buckets, *a, **kw)
 
     monkeypatch.setattr(tpacked, "merge_buckets", spy)
+    return seen
+
+
+def _misses(texts, ranks, lo, hi):
+    """The pieces of ``texts`` of lo..hi bytes that are not tokens."""
+    return sum(lo <= len(b) <= hi and b not in ranks
+               for t in texts for b in (p.encode() for p in pretokenize(t)))
+
+
+def test_encode_batch_runs_merge_buckets_and_splice(toks, monkeypatch):
+    """4-8-byte misses reach the P=4 and P=8 merge buckets and 9-32-byte
+    misses the P=32 bucket; misses over 32 bytes are merged and spliced on
+    the host."""
+    tok, port = toks
+    seen = _spy_buckets(monkeypatch)
     rng = random.Random(31)
-    texts = [_prose(rng, 50, long_share=0.1) for _ in range(9)]
+    texts = [_prose(rng, 50, long_share=0.1) + " " + _word(rng, 33, 40)
+             for _ in range(9)]
     got = port.encode_batch(texts)
     for t, g in zip(texts, got):
         assert g == [r + 20 for r in encode_ranks(t, tok.ranks)], repr(t)
-    assert {4, 8} <= set(seen) and 32 not in seen
-    assert port.last_batch_stats["fb_spans"] > 0
+    assert {4, 8, 32} <= set(seen)
+    assert port.last_batch_stats["fb_spans"] == 9
     assert port.last_batch_stats["overflow_rows"] == 0
+
+
+def _utf8_word(rng, lo, hi):
+    """A lowercase word of lo..hi UTF-8 bytes, a third of its letters
+    two bytes long."""
+    n, w = rng.randint(lo, hi), ""
+    while len(w.encode()) < n:
+        two = rng.random() < 0.33 and len(w.encode()) + 2 <= n
+        w += rng.choice("éüñçøåß" if two else string.ascii_lowercase)
+    return w
+
+
+# the texts of encode calls whose vocab misses are all 9-32 bytes: one
+# route group (route 1 or 3), or three; single bytes (the double space,
+# the digits) are no misses.  The encoders' (8, 256) shape holds 64 long
+# misses a call (``default_np_cap`` / 8): "overflow" has 72.
+LONG_MISS_TEXTS = {
+    "route1": lambda rng: [" ".join(_word(rng, 9, 31) for _ in range(10))
+                           for _ in range(6)],
+    "route3": lambda rng: [" ".join(_utf8_word(rng, 9, 31)
+                                    for _ in range(10)) for _ in range(6)],
+    "routes123": lambda rng: [
+        " ".join(_word(rng, 9, 31) for _ in range(8)),
+        _word(rng, 9, 31) + "  " + _word(rng, 9, 31) + " 1234",
+        " ".join(_utf8_word(rng, 9, 31) for _ in range(8))],
+    "overflow": lambda rng: [" ".join(_word(rng, 9, 31) for _ in range(12))
+                             for _ in range(6)],
+}
+
+
+@pytest.mark.parametrize("kind", sorted(LONG_MISS_TEXTS))
+def test_default_encoder_merges_long_misses_on_the_device(toks, monkeypatch,
+                                                          kind):
+    """Through the default PackedEncoder, misses of 9-32 bytes merge in the
+    P=32 bucket: no span reaches the host (the splice opens no span),
+    ``device_long_rows`` counts every one the bucket holds, and the ids
+    are the oracle's.  Past the bucket's 64 rows the rows holding the
+    dropped misses are re-encoded on the host, still with no span."""
+    tok, port = toks
+    seen = _spy_buckets(monkeypatch)
+    texts = LONG_MISS_TEXTS[kind](random.Random(len(kind)))
+    n_long = _misses(texts, tok.ranks, 9, 32)
+    assert n_long > 10 and _misses(texts, tok.ranks, 2, 8) == \
+        _misses(texts, tok.ranks, 33, 1 << 20) == 0
+    clock = StageClock()
+    got = port.encode_batch(texts, clock=clock)
+    for t, g in zip(texts, got):
+        assert g == [r + 20 for r in encode_ranks(t, tok.ranks)], repr(t)
+    assert seen and set(seen) == {32}
+    stats = port.last_batch_stats
+    assert stats["fb_spans"] == 0
+    assert stats["device_long_rows"] == min(n_long, 64)
+    assert (stats["overflow_rows"] > 0) == (n_long > 64) == (kind ==
+                                                             "overflow")
+    names = {r.name for r in clock.spans}
+    assert "tekken.splice.merge" not in names
+    assert "tekken.splice.sort" not in names
+    assert ("tekken.overflow_rows" in names) == (kind == "overflow")
+
+
+def test_default_encoder_splices_only_misses_over_32_bytes(toks, monkeypatch):
+    """A mixed batch: every miss of 9-32 bytes merges on the device, and
+    only those over 32 bytes are merged and spliced on the host (both
+    share the long bucket's 64 rows at this shape)."""
+    tok, port = toks
+    rng = random.Random(17)
+    texts = [" ".join(_word(rng, 9, 31) if rng.random() < 0.7
+                      else _word(rng, 33, 45) for _ in range(8))
+             for _ in range(7)] + ["café " + _word(rng, 40, 50)]
+    spliced = []
+    real = tpacked.splice_host_merges
+
+    def spy(out, out_pos, flat, fb_start, fb_len, *a, **kw):
+        spliced.extend(fb_len[fb_start >= 0].tolist())
+        return real(out, out_pos, flat, fb_start, fb_len, *a, **kw)
+
+    monkeypatch.setattr(tpacked, "splice_host_merges", spy)
+    got = port.encode_batch(texts)
+    for t, g in zip(texts, got):
+        assert g == [r + 20 for r in encode_ranks(t, tok.ranks)], repr(t)
+    n_long = _misses(texts, tok.ranks, 9, 32)
+    n_host = _misses(texts, tok.ranks, 33, 1 << 20)
+    assert n_long > 20 and n_host > 10 and n_long + n_host <= 64
+    assert min(spliced) > 32 and len(spliced) == n_host
+    assert port.last_batch_stats == {"overflow_rows": 0, "fb_spans": n_host,
+                                     "device_long_rows": n_long}
 
 
 def test_long_bucket_device_merge(toks, monkeypatch):
@@ -177,14 +278,7 @@ def test_long_bucket_device_merge(toks, monkeypatch):
     (the reference's tier counts only mergeable pieces)."""
     tok, port = toks
     rng = random.Random(5)
-    seen = []
-    real = tpacked.merge_buckets
-
-    def spy(tok, w, byte_rank, plen, buckets, *a, **kw):
-        seen.extend(P for _, _, P, _ in buckets)
-        return real(tok, w, byte_rank, plen, buckets, *a, **kw)
-
-    monkeypatch.setattr(tpacked, "merge_buckets", spy)
+    seen = _spy_buckets(monkeypatch)
     texts = [" ".join(_word(rng, 33, 40) for _ in range(14)) for _ in range(5)]
     texts += [" ".join(_word(rng, 9, 31) for _ in range(20))
               for _ in range(3)]

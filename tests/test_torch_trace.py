@@ -40,9 +40,14 @@ def _words(seed, n, lo=2, hi=12):
                     for _ in range(n))
 
 
-ROUTE1 = ["Hello world, it's a test.", _words(1, 10, 9, 13)]
-ROUTE2 = ["two  spaces here", "digits 123456 " + _words(2, 8, 9, 13)]
-ROUTE3 = ["café naïve 中文 " + _words(3, 8, 9, 13), "日本語 \U0001f600 x"]
+# misses of 9-32 bytes merge on the device; the 33-40-letter words are
+# the misses the host merges and splices
+ROUTE1 = ["Hello world, it's a test.",
+          _words(1, 10, 9, 13) + " " + _words(11, 2, 33, 40)]
+ROUTE2 = ["two  spaces here",
+          "digits 123456 " + _words(2, 8, 9, 13) + " " + _words(12, 2, 33, 40)]
+ROUTE3 = ["café naïve 中文 " + _words(3, 8, 9, 13) + " "
+          + _words(13, 2, 33, 40), "日本語 \U0001f600 x"]
 # (texts, route groups a sub-batch: packed encode calls)
 CASES = {"route1": (ROUTE1, 1), "route2": (ROUTE2, 1),
          "route3": (ROUTE3, 1), "mixed": (ROUTE1 + ROUTE2 + ROUTE3, 3)}
@@ -102,6 +107,7 @@ def test_spans_nest_under_one_call(tok, case):
     assert root.attrs["docs"] == len(texts)
     assert root.attrs["bytes"] == sum(len(t.encode()) for t in texts)
     assert tok.last_batch_stats["fb_spans"] > 0
+    assert tok.last_batch_stats["device_long_rows"] > 0
     assert {"tekken.splice.merge", "tekken.splice.sort",
             "tekken.doc_lists"} <= {r.name for r in clock.spans}
     assert ids == tok.encode_batch(texts, add_end_of_sequence=True)
@@ -166,6 +172,7 @@ def test_counters_agree_with_last_batch_stats(tok, monkeypatch, overflow):
     got = {k: COUNTERS.totals[k] - before[k] for k in before}
     assert got["encode_calls"] == 1
     assert got["host_merge_spans"] == stats["fb_spans"] > 0
+    assert got["device_long_rows"] == stats["device_long_rows"] > 0
     assert got["overflow_rows"] == stats["overflow_rows"]
     assert (stats["overflow_rows"] > 0) == overflow
     n_over = [r.name for r in clock.spans].count("tekken.overflow_rows")
@@ -175,6 +182,30 @@ def test_counters_agree_with_last_batch_stats(tok, monkeypatch, overflow):
     ns = tok.num_special_tokens()
     assert enc.encode_batch(texts) == [[i - ns for i in d] for d in ids]
     assert enc.stats == stats
+
+
+def test_benchmark_reads_the_long_rows_counter(tok):
+    """The benchmark's ``device_long_rows.corpus`` reader gives the
+    counter's total over the encode calls; without the counter (a
+    program that lacks it) it reads None."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "metrics",
+        "device_long_rows.corpus.py")
+    spec = importlib.util.spec_from_file_location("device_long_rows", path)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    tok.encode_batch(CASES["mixed"][0])
+    t = COUNTERS.totals
+    assert t["device_long_rows"] > 0
+    assert reader.read(None) == t["device_long_rows"] / t["encode_calls"]
+    saved = t.pop("device_long_rows")
+    try:
+        assert reader.read(None) is None
+    finally:
+        t["device_long_rows"] = saved
 
 
 def test_off_records_nothing(tok, monkeypatch):
