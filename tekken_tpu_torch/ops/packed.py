@@ -759,6 +759,8 @@ class PackedEncoder:
                   else max(64, self._np_cap * Bg // self._B))
         dev = self._device
         with span("tekken.upload", clock):
+            COUNTERS.add("plane_bytes", buf.size)
+            COUNTERS.add("text_bytes", int(lengths.sum()))
             byts = torch.from_numpy(buf).to(dev)
             lens = torch.from_numpy(lengths).to(dev)
             mark(clock, "upload", dev)

@@ -457,83 +457,96 @@ class Tekkenizer:
     # ------------------------------------------------------------------ #
 
     def decode_batch(self, token_lists,
-                     special_token_policy: SpecialTokenPolicy) -> list[str]:
+                     special_token_policy: SpecialTokenPolicy,
+                     clock=None) -> list[str]:
         """Batched decode: every non-special token of the batch goes to the
         device decoder (ops/decode.py) in one rank stream, and the runs of
         the reference's decode_all grouping (src/tekkenizer.rs:463-560)
         are reassembled on the host with lossy UTF-8.  Errors are raised
         before any device work: RAISE on a special token, then an invalid
-        id."""
-        ns = self._num_special_tokens
-        n_ranks = len(self._decode_table.offsets) - 1
-        policy = special_token_policy
+        id.  ``clock`` (a ``utils.timing.StageClock``, measurement only)
+        records the spans ``tekken.decode_batch`` (the root),
+        ``tekken.decode.plan``, ``tekken.decode.device`` and
+        ``tekken.decode.assemble``."""
+        with span("tekken.decode_batch", clock):
+            COUNTERS.add("decode_calls", 1)
+            ns = self._num_special_tokens
+            n_ranks = len(self._decode_table.offsets) - 1
+            policy = special_token_policy
 
-        # the plan, array-shaped: concatenate the batch, split it into
-        # maximal same-specialness runs (a doc edge always breaks a run)
-        sizes = np.fromiter((len(x) for x in token_lists), np.int64,
-                            len(token_lists))
-        T = int(sizes.sum())
-        if T == 0:
-            return ["" for _ in token_lists]
-        allv = np.concatenate([np.asarray(x, dtype=np.int64).reshape(-1)
-                               for x in token_lists if len(x)])
-        doc_of = np.repeat(np.arange(len(token_lists)), sizes)
-        sp = allv < ns
-        if policy is SpecialTokenPolicy.RAISE and sp.any():
-            # the message lists the offending run (src/tekkenizer.rs:531-535)
-            p0 = int(np.argmax(sp))
-            d0 = doc_of[p0]
-            hi = p0
-            while hi < T and sp[hi] and doc_of[hi] == d0:
-                hi += 1
-            raise SpecialTokenPolicyError(
-                f"Decoding tokens that contain special tokens "
-                f"({allv[p0:hi].tolist()!r}) is not allowed")
-        ranks_all = allv[~sp] - ns
-        if ranks_all.size and (int(ranks_all.min()) < 0
-                               or int(ranks_all.max()) >= n_ranks):
-            badpos = np.flatnonzero(~sp)[
-                (ranks_all < 0) | (ranks_all >= n_ranks)][0]
-            raise TokenizersError(
-                f"Invalid token id for decode: {allv[badpos]}")
+            # the plan, array-shaped: concatenate the batch, split it into
+            # maximal same-specialness runs (a doc edge always breaks a run)
+            with span("tekken.decode.plan", clock):
+                sizes = np.fromiter((len(x) for x in token_lists), np.int64,
+                                    len(token_lists))
+                T = int(sizes.sum())
+                if T == 0:
+                    return ["" for _ in token_lists]
+                COUNTERS.add("decode_tokens", T)
+                allv = np.concatenate([
+                    np.asarray(x, dtype=np.int64).reshape(-1)
+                    for x in token_lists if len(x)])
+                doc_of = np.repeat(np.arange(len(token_lists)), sizes)
+                sp = allv < ns
+                if policy is SpecialTokenPolicy.RAISE and sp.any():
+                    # the message lists the offending run
+                    # (src/tekkenizer.rs:531-535)
+                    p0 = int(np.argmax(sp))
+                    d0 = doc_of[p0]
+                    hi = p0
+                    while hi < T and sp[hi] and doc_of[hi] == d0:
+                        hi += 1
+                    raise SpecialTokenPolicyError(
+                        f"Decoding tokens that contain special tokens "
+                        f"({allv[p0:hi].tolist()!r}) is not allowed")
+                ranks_all = allv[~sp] - ns
+                if ranks_all.size and (int(ranks_all.min()) < 0
+                                       or int(ranks_all.max()) >= n_ranks):
+                    badpos = np.flatnonzero(~sp)[
+                        (ranks_all < 0) | (ranks_all >= n_ranks)][0]
+                    raise TokenizersError(
+                        f"Invalid token id for decode: {allv[badpos]}")
 
-        # run cuts: specialness flips or doc edges
-        brk = np.flatnonzero((sp[1:] != sp[:-1])
-                             | (doc_of[1:] != doc_of[:-1])) + 1
-        cuts = np.concatenate(([0], brk, [T]))
-        run_doc = doc_of[cuts[:-1]]
-        run_sp = sp[cuts[:-1]]
+                # run cuts: specialness flips or doc edges
+                brk = np.flatnonzero((sp[1:] != sp[:-1])
+                                     | (doc_of[1:] != doc_of[:-1])) + 1
+                cuts = np.concatenate(([0], brk, [T]))
+                run_doc = doc_of[cuts[:-1]]
+                run_sp = sp[cuts[:-1]]
 
-        # one device stream decodes every non-special token of the batch
-        data = b""
-        byte_cuts = rank_ord = None
-        if ranks_all.size:
-            stream = ranks_all.astype(np.int32)
-            dec = self._get_device_decoder()
-            ends = dec.byte_ends(stream)
-            data = dec.decode_stream(stream, ends)
-            self._last_engine = "device-decode"
-            byte_cuts = np.concatenate(([0], ends))
-            # rank ordinal of each batch position (exclusive count of
-            # non-special tokens before it)
-            rank_ord = np.cumsum(~sp) - (~sp).astype(np.int64)
+            # one device stream decodes every non-special token of the batch
+            data = b""
+            byte_cuts = rank_ord = None
+            if ranks_all.size:
+                with span("tekken.decode.device", clock):
+                    stream = ranks_all.astype(np.int32)
+                    dec = self._get_device_decoder()
+                    ends = dec.byte_ends(stream)
+                    data = dec.decode_stream(stream, ends)
+                COUNTERS.add("decode_bytes", len(data))
+                self._last_engine = "device-decode"
+                byte_cuts = np.concatenate(([0], ends))
+                # rank ordinal of each batch position (exclusive count of
+                # non-special tokens before it)
+                rank_ord = np.cumsum(~sp) - (~sp).astype(np.int64)
 
-        # assembly: one pass over runs, not tokens
-        parts: list[list[str]] = [[] for _ in token_lists]
-        keep = policy is SpecialTokenPolicy.KEEP
-        for r in range(len(run_doc)):
-            lo, hi = cuts[r], cuts[r + 1]
-            if run_sp[r]:
-                if keep:
-                    parts[run_doc[r]].append("".join(
-                        self._special_tokens[t].token_str
-                        for t in allv[lo:hi]))
-            else:
-                blo = byte_cuts[rank_ord[lo]]
-                bhi = byte_cuts[rank_ord[hi - 1] + 1]
-                parts[run_doc[r]].append(
-                    data[blo:bhi].decode("utf-8", errors="replace"))
-        return ["".join(p) for p in parts]
+            # assembly: one pass over runs, not tokens
+            with span("tekken.decode.assemble", clock):
+                parts: list[list[str]] = [[] for _ in token_lists]
+                keep = policy is SpecialTokenPolicy.KEEP
+                for r in range(len(run_doc)):
+                    lo, hi = cuts[r], cuts[r + 1]
+                    if run_sp[r]:
+                        if keep:
+                            parts[run_doc[r]].append("".join(
+                                self._special_tokens[t].token_str
+                                for t in allv[lo:hi]))
+                    else:
+                        blo = byte_cuts[rank_ord[lo]]
+                        bhi = byte_cuts[rank_ord[hi - 1] + 1]
+                        parts[run_doc[r]].append(
+                            data[blo:bhi].decode("utf-8", errors="replace"))
+                return ["".join(p) for p in parts]
 
     def _get_device_decoder(self):
         from .ops.decode import DeviceDecoder

@@ -15,7 +15,11 @@ stage timer, and the encode path's recorder:
   with neither, a flag check and a shared null context;
 - ``COUNTERS``, the process-wide counts of the work done (kernel launches,
   encode calls, host-merged spans, device-merged long misses, overflow
-  rows, readback bytes).
+  rows, readback bytes, the uploaded planes' bytes and their live bytes,
+  decode calls, tokens and bytes).
+
+``Tekkenizer.decode_batch(clock=...)`` records its spans on the same
+clock (``tekken.decode_batch`` and its children).
 """
 
 from __future__ import annotations
@@ -99,8 +103,8 @@ class StageTimer:
 # --------------------------------------------------------------------- #
 
 class Counters:
-    """The process-wide counts of the encode path's work, added where the
-    work happens.  ``launches`` counts kernel launches by kernel name
+    """The process-wide counts of the encode and decode paths' work, added
+    where the work happens.  ``launches`` counts kernel launches by kernel name
     (``_build.LAUNCHES`` is this dict); ``totals`` holds:
 
     - ``encode_calls``: ``Tekkenizer.encode_batch`` calls;
@@ -111,14 +115,21 @@ class Counters:
     - ``overflow_rows``: rows re-encoded on the host after a bucket
       overflowed;
     - ``readback_bytes``: bytes of the tensors ``PackedEncoder`` reads
-      back from the device.
+      back from the device;
+    - ``plane_bytes``: B x R of every byte plane ``PackedEncoder`` uploads
+      (route sub-buffers included), ``text_bytes`` the docs' bytes in them
+      (the rest is padding);
+    - ``decode_calls``, ``decode_tokens``, ``decode_bytes``:
+      ``Tekkenizer.decode_batch`` calls, the ids they took (specials
+      included) and the bytes the device decoded.
 
     A call's own counts are the difference of ``totals`` across it:
     ``since`` gives them as ``PackedEncoder.stats`` and
     ``Tekkenizer.last_batch_stats`` show them."""
 
     NAMES = ("encode_calls", "host_merge_spans", "device_long_rows",
-             "overflow_rows", "readback_bytes")
+             "overflow_rows", "readback_bytes", "plane_bytes", "text_bytes",
+             "decode_calls", "decode_tokens", "decode_bytes")
     # the per-call views' keys and the totals they read
     VIEWS = {"overflow_rows": "overflow_rows", "fb_spans": "host_merge_spans",
              "device_long_rows": "device_long_rows"}

@@ -7,7 +7,10 @@ a span's self time is its duration less its children's; the counters
 ``PackedEncoder.stats``) come from the same increments; with no clock and
 no profiler nothing is recorded; under ``torch.profiler`` every span is a
 host range nested in ``tekken.encode_batch``, starting where its record
-starts."""
+starts.  ``Tekkenizer.decode_batch(clock=...)`` records
+``tekken.decode_batch`` and its three children and counts its calls, ids
+and decoded bytes; ``plane_bytes`` and ``text_bytes`` count the uploaded
+planes and the docs' bytes in them."""
 
 import random
 import string
@@ -17,9 +20,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import tekken_tpu_torch.tekkenizer as ttk
+from tekken_tpu_torch.errors import SpecialTokenPolicyError
 from tekken_tpu_torch.models import build_synthetic_tokenizer
 from tekken_tpu_torch.ops import packed
 from tekken_tpu_torch.ops.packed import StageClock
+from tekken_tpu_torch.special_tokens import SpecialTokenPolicy
 from tekken_tpu_torch.utils import timing
 from tekken_tpu_torch.utils.timing import COUNTERS
 
@@ -268,3 +273,86 @@ def test_spans_are_profiler_ranges(tok, clocked):
         if lag < 1_000_000:
             return
     pytest.fail(f"a record starts {lag} ns from its range")
+
+
+DECODE = {"tekken.decode.plan", "tekken.decode.device",
+          "tekken.decode.assemble"}
+
+
+def _completions(tok):
+    """Encoded docs with specials around and between them, and an empty
+    one."""
+    ns = tok.num_special_tokens()
+    ids = tok.encode_batch(ROUTE1 + ROUTE3, True, True)
+    return [ids[0], [], ids[1] + [ns - 1] + ids[2], ids[3], [1, 2]]
+
+
+def test_decode_spans_nest_under_one_call(tok):
+    clock = StageClock()
+    lists = _completions(tok)
+    out = tok.decode_batch(lists, SpecialTokenPolicy.IGNORE, clock=clock)
+    recs = clock.spans
+    roots = [r for r in recs if r.parent is None]
+    assert [r.name for r in roots] == ["tekken.decode_batch"]
+    kids = [r for r in recs if r.parent is not None]
+    assert sorted(r.name for r in kids) == sorted(DECODE)
+    for r in kids:
+        assert r.parent == roots[0].id and r.call == roots[0].call
+        assert roots[0].start_ns <= r.start_ns <= r.end_ns \
+            <= roots[0].end_ns
+    assert DECODE | {"tekken.decode_batch"} <= set(clock.times)
+    assert out == tok.decode_batch(lists, SpecialTokenPolicy.IGNORE)
+
+
+@pytest.mark.parametrize("policy", list(SpecialTokenPolicy))
+def test_decode_without_a_clock_is_unchanged(tok, monkeypatch, policy):
+    """No clock and no profiler: no record is made, and the texts are the
+    host decode's, list by list (RAISE refuses the batch as before)."""
+    lists = _completions(tok)
+    if policy is SpecialTokenPolicy.RAISE:
+        lists = [x for x in lists if all(t >= tok.num_special_tokens()
+                                         for t in x)]
+    want = [tok.decode(x, policy) for x in lists]
+
+    def refuse(*a, **kw):
+        raise AssertionError("a span was recorded")
+    monkeypatch.setattr(timing, "_Span", refuse)
+    assert tok.decode_batch(lists, policy) == want
+    if policy is SpecialTokenPolicy.RAISE:
+        with pytest.raises(SpecialTokenPolicyError):
+            tok.decode_batch(_completions(tok), policy)
+
+
+def test_decode_counters_move_by_the_batch(tok):
+    lists = _completions(tok)
+    ns = tok.num_special_tokens()
+    before = dict(COUNTERS.totals)
+    tok.decode_batch(lists, SpecialTokenPolicy.KEEP)
+    got = {k: COUNTERS.totals[k] - before[k] for k in before}
+    assert got["decode_calls"] == 1
+    assert got["decode_tokens"] == sum(len(x) for x in lists)
+    assert got["decode_bytes"] == sum(
+        len(tok.decode_table.token_bytes(t - ns))
+        for x in lists for t in x if t >= ns)
+    assert got["encode_calls"] == got["plane_bytes"] == 0
+    before = dict(COUNTERS.totals)
+    assert tok.decode_batch([[], []], SpecialTokenPolicy.KEEP) == ["", ""]
+    assert COUNTERS.totals["decode_calls"] - before["decode_calls"] == 1
+    assert COUNTERS.totals["decode_tokens"] == before["decode_tokens"]
+
+
+def test_plane_and_text_bytes_of_a_two_route_batch(tok):
+    """Routes 1 and 2 run as two 8-row sub-buffers of the batch's row
+    length: each counts 8 x R plane bytes, and its docs' bytes."""
+    texts = ROUTE1 + ROUTE2
+    enc = tok._get_packed_encoder(texts)
+    R = enc._R
+    assert R == 256 >= max(len(t.encode()) for t in texts)
+    before = dict(COUNTERS.totals)
+    tok.encode_batch(texts)
+    got = {k: COUNTERS.totals[k] - before[k] for k in before}
+    assert got["plane_bytes"] == 2 * 8 * R
+    assert got["text_bytes"] == sum(len(t.encode()) for t in texts)
+    before = dict(COUNTERS.totals)
+    tok.encode_batch(ROUTE1)
+    assert COUNTERS.totals["plane_bytes"] - before["plane_bytes"] == 8 * R
