@@ -1344,7 +1344,8 @@ def path_h(tok):
         # ASCII batch
         for b in batches_h + [long_batch, ascii_batch]:
             buf, lens = enc.pack(b)
-            out = enc._encode_buffer(buf, lens, len(b), None)
+            out = packed_mod.split_ids(*enc._encode_buffer(buf, lens, len(b),
+                                                           None))
             lines += [f"MISMATCH merges={n_merges} seed={soak.SEED} "
                       f"doc={t!r} flat encode" for t, o in zip(b, out)
                       if o != want[t]]
@@ -1723,7 +1724,8 @@ def main():
 
         def flat_run(clock=None, texts=texts, enc=enc):
             buf, lens = enc.pack(texts)
-            return enc._encode_buffer(buf, lens, len(texts), None, clock)
+            return packed_mod.split_ids(*enc._encode_buffer(
+                buf, lens, len(texts), None, clock))
 
         with Capture(packed_mod, "stage1_fused") as c1, \
                 Capture(packed_mod, "merge_buckets", clone_first=True) as c2:

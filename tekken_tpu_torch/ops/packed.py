@@ -21,7 +21,9 @@ buffer of document rows goes through:
    merge kernel (ops/merge.py), the longer ones in the P=32 bucket;
 6. on the host: misses longer than ``fb_len_limit`` are merged and
    spliced at their spans, and rows whose pieces overflowed a bucket are
-   re-encoded exactly.
+   re-encoded exactly.  ``PackedEncoder`` hands the docs' ranks on as one
+   flat int32 array in doc order and its doc cuts (``split_ids`` makes
+   the per-doc lists).
 
 ``packed_encode``'s limit defaults to the JAX package's, 8 bytes.
 ``PackedEncoder`` passes ``P_LANES`` (32): the merge kernel runs every
@@ -65,7 +67,7 @@ from .stage1 import stage1_compact, stage1_fused, stage1_planes
 __all__ = ["P_LANES", "P_SHORT", "PackedEncoder", "StageClock",
            "default_np_cap", "doc_routes", "host_route", "oracle_merge_fn",
            "packed_encode", "piece_safe_segments", "probe2",
-           "splice_host_merges"]
+           "splice_host_merges", "split_ids", "take_segments"]
 
 P_LANES = 32
 P_SHORT = 8
@@ -643,6 +645,25 @@ def splice_host_merges(out, out_pos, flat, fb_start, fb_len, merge_fn,
         return out[o], out_pos[o]
 
 
+def take_segments(flat, starts, counts):
+    """``flat[starts[i]:starts[i] + counts[i]]`` for every i, back to back,
+    in one gather, and their cuts (int64, ``len(counts) + 1``)."""
+    counts = np.asarray(counts, dtype=np.int64)
+    cuts = np.zeros(counts.size + 1, dtype=np.int64)
+    np.cumsum(counts, out=cuts[1:])
+    idx = np.repeat(np.asarray(starts, dtype=np.int64) - cuts[:-1],
+                    counts) + np.arange(cuts[-1])
+    return flat[idx], cuts
+
+
+def split_ids(flat, cuts) -> list[list[int]]:
+    """The per-doc lists of Python ints of a flat result, one ``tolist``
+    a doc (faster than one of the whole array and a slice a doc, which
+    makes every list twice)."""
+    c = cuts.tolist()
+    return [flat[a:b].tolist() for a, b in zip(c[:-1], c[1:])]
+
+
 def oracle_merge_fn(ranks):
     """byte_pair_merge-based merge_fn for ``splice_host_merges``."""
     from ..oracle import byte_pair_merge
@@ -670,9 +691,11 @@ class PackedEncoder:
     device record every miss as a span, which the host merges with the
     tokenizer's host engine (the native engine's ``merge_spans``) and
     splices.  Rows whose pieces overflowed a bucket are re-encoded by the
-    host engine.
+    host engine.  ``_encode_flat`` returns the docs' ranks as one flat
+    array and its doc cuts (``Tekkenizer.encode_batch`` builds the public
+    ids from it); ``encode_batch`` splits it into per-doc lists.
 
-    ``stats`` holds the last ``encode_batch``'s increments of
+    ``stats`` holds the last encode call's increments of
     ``utils.timing.COUNTERS``: the rows re-encoded on the host after a
     bucket overflow, the spans merged and spliced on the host and the
     long bucket's rows merged on the device.
@@ -712,6 +735,12 @@ class PackedEncoder:
         return buf, lengths
 
     def encode_batch(self, texts, clock=None):
+        """Per-doc rank lists, in input order."""
+        return split_ids(*self._encode_flat(texts, clock))
+
+    def _encode_flat(self, texts, clock=None):
+        """(flat, cuts): the docs' ranks as one int32 array in input order
+        and the doc cuts (int64, ``len(texts) + 1``)."""
         before = dict(COUNTERS.totals)
         try:
             return self._encode_routes(texts, clock)
@@ -728,7 +757,12 @@ class PackedEncoder:
         if len(distinct) <= 1:
             return self._encode_buffer(buf, lengths, len(texts), route,
                                        clock)
-        result: list[list[int] | None] = [None] * len(texts)
+        # each group's docs back in input order: one gather over the
+        # groups' flat arrays
+        flats = []
+        starts = np.empty(len(texts), dtype=np.int64)
+        counts = np.empty(len(texts), dtype=np.int64)
+        base = 0
         for r in distinct:
             idx = np.flatnonzero(routes == r)
             Bg = 8
@@ -743,17 +777,24 @@ class PackedEncoder:
                     sub_len = np.zeros(Bg, dtype=np.int32)
                     sub_len[:sel.size] = lengths[sel]
                     mark(clock, "route_pack")
-                sub_out = self._encode_buffer(sub_buf, sub_len, sel.size,
-                                              int(r), clock)
-                for j, i in enumerate(sel):
-                    result[int(i)] = sub_out[j]
-        return result
+                flat, cuts = self._encode_buffer(sub_buf, sub_len, sel.size,
+                                                 int(r), clock)
+                flats.append(flat)
+                starts[sel] = base + cuts[:-1]
+                counts[sel] = np.diff(cuts)
+                base += flat.size
+        with span("tekken.doc_lists", clock):
+            flat, cuts = take_segments(np.concatenate(flats), starts, counts)
+            mark(clock, "splice")
+        return flat, cuts
 
     def _encode_buffer(self, buf, lengths, n_docs: int, route: int | None,
                        clock=None):
         """Run the pipeline on one (Bg, R) buffer with a static route, or
         on the unrouted flat path for ``route`` None; splice fb spans and
-        re-encode overflow rows on the host."""
+        re-encode overflow rows on the host.  Returns (flat, cuts): the
+        first ``n_docs`` rows' ranks as one int32 array and the row cuts
+        (int64, ``n_docs + 1``)."""
         Bg = buf.shape[0]
         np_cap = (self._np_cap if Bg == self._B
                   else max(64, self._np_cap * Bg // self._B))
@@ -775,8 +816,8 @@ class PackedEncoder:
                                       (tok, fb_start, fb_len))]
             COUNTERS.add("readback_bytes", sum(t.nbytes for t in back))
             tok, fb_start, fb_len = (t.numpy() for t in back[:3])
-            bad_rows = (set(np.flatnonzero(back[3].numpy()).tolist())
-                        if overflow else set())
+            bad_rows = (np.flatnonzero(back[3].numpy()) if overflow
+                        else np.empty(0, dtype=np.int64))
             mark(clock, "readback", dev)
 
         with span("tekken.doc_lists", clock):
@@ -786,17 +827,23 @@ class PackedEncoder:
             out, out_pos, buf.reshape(-1), fb_start, fb_len, self._merge_fn,
             clock=clock)
         with span("tekken.doc_lists", clock):
-            rows = out_pos // self._R
-            cut = np.searchsorted(rows, np.arange(n_docs + 1))
-            result = [None if i in bad_rows else
-                      out[cut[i]:cut[i + 1]].tolist() for i in range(n_docs)]
-        if bad_rows:
+            cuts = np.searchsorted(out_pos // self._R, np.arange(n_docs + 1))
+            out = out[:cuts[-1]]
+        if bad_rows.size:
             with span("tekken.overflow_rows", clock):
-                COUNTERS.add("overflow_rows", len(bad_rows))
-                for i in sorted(bad_rows):
-                    if i < n_docs:
-                        data = buf[i, :lengths[i]].tobytes()
-                        result[i] = self._tokenizer._host_ranks(
-                            data.decode("utf-8"))
+                COUNTERS.add("overflow_rows", bad_rows.size)
+                bad = bad_rows[bad_rows < n_docs]
+                host = [self._tokenizer._host_ranks(
+                    buf[i, :lengths[i]].tobytes().decode("utf-8"))
+                    for i in bad.tolist()]
+                # the bad rows' device tokens give way to the host's
+                starts, counts = cuts[:-1].copy(), np.diff(cuts)
+                n_host = np.fromiter(map(len, host), np.int64, len(host))
+                starts[bad] = out.size + np.cumsum(n_host) - n_host
+                counts[bad] = n_host
+                out, cuts = take_segments(
+                    np.concatenate([out, np.fromiter(
+                        (r for h in host for r in h), out.dtype)]),
+                    starts, counts)
         mark(clock, "splice")
-        return result
+        return out, cuts

@@ -67,6 +67,15 @@ def _pow2(n: int, lo: int) -> int:
     return b
 
 
+def _join(parts):
+    """Consecutive row sub-batches' (flat, cuts) as one (flat, cuts)."""
+    flat = np.concatenate([f for f, _ in parts])
+    offsets = np.cumsum([0] + [f.size for f, _ in parts])
+    cuts = np.concatenate([np.zeros(1, dtype=np.int64)] + [
+        c[1:] + o for (_, c), o in zip(parts, offsets)])
+    return flat, cuts
+
+
 class Tekkenizer:
     """Multimodal Tekken tokenizer (reference: src/tekkenizer.rs:34-44)."""
 
@@ -324,23 +333,67 @@ class Tekkenizer:
                 batches = self._row_batches(rows)
             if root is not None:
                 root.attrs.update(docs=len(texts), bytes=n_bytes)
-            rank_lists: list[list[int]] = []
+            parts = []
             for sub in batches:
                 with span("tekken.plan", clock):
                     enc = self._get_packed_encoder(sub)
-                rank_lists += enc.encode_batch(sub, clock=clock)
-            self._last_batch_stats = COUNTERS.since(before)
+                parts.append(enc._encode_flat(sub, clock=clock))
             self._last_engine = "packed-device"
             with span("tekken.public_ids", clock):
-                if plans is not None:
-                    rank_lists = [[r for part in plan for r in (
-                        rank_lists[part] if isinstance(part, int) else part)]
-                        for plan in plans]
-                out = [self._with_specials(r, add_beginning_of_sequence,
-                                           add_end_of_sequence)
-                       for r in rank_lists]
+                flat, cuts = parts[0] if len(parts) == 1 else _join(parts)
+                out = self._public_ids(flat, cuts, plans,
+                                       add_beginning_of_sequence,
+                                       add_end_of_sequence)
                 mark(clock, "public_ids")
+            self._last_batch_stats = COUNTERS.since(before)
             return out
+
+    def _public_ids(self, flat, cuts, plans, bos: bool, eos: bool):
+        """The public ids of each doc from the rows' flat ranks and cuts:
+        the specials' shift and BOS/EOS placed in one array, then Python
+        ints made once.  A doc cut by ``_cut_oversize`` (its plan is more
+        than one row) is joined from its parts as lists."""
+        from .ops.packed import split_ids, take_segments
+
+        if plans is not None:
+            whole = [i for i, p in enumerate(plans)
+                     if len(p) == 1 and isinstance(p[0], int)]
+            rows = np.array([plans[i][0] for i in whole], dtype=np.int64)
+            counts = np.diff(cuts)
+            ranks, doc_cuts = take_segments(flat, cuts[:-1][rows],
+                                            counts[rows])
+        else:
+            ranks, doc_cuts = flat, cuts
+        n = doc_cuts.size - 1
+        ids = ranks + np.int32(self._num_special_tokens)
+        if bos or eos:
+            # doc i's ids start at doc_cuts[i] + i * (bos + eos)
+            extra = int(bos) + int(eos)
+            out_cuts = doc_cuts + extra * np.arange(n + 1)
+            out = np.empty(out_cuts[-1], dtype=ids.dtype)
+            special = np.zeros(out.size, dtype=bool)
+            if bos:
+                out[out_cuts[:-1]] = self.bos_id()
+                special[out_cuts[:-1]] = True
+            if eos:
+                out[out_cuts[1:] - 1] = self.eos_id()
+                special[out_cuts[1:] - 1] = True
+            out[~special] = ids
+            ids, doc_cuts = out, out_cuts
+        lists = split_ids(ids, doc_cuts)
+        COUNTERS.add("flat_id_docs", n)
+        if plans is None:
+            return lists
+        result: list = [None] * len(plans)
+        for i, doc in zip(whole, lists):
+            result[i] = doc
+        for i, plan in enumerate(plans):
+            if result[i] is None:
+                result[i] = self._with_specials(
+                    [r for part in plan for r in (
+                        flat[cuts[part]:cuts[part + 1]].tolist()
+                        if isinstance(part, int) else part)], bos, eos)
+        return result
 
     def _cut_oversize(self, texts):
         """(rows, plans, n_bytes), n_bytes the UTF-8 bytes of ``texts``.
@@ -401,7 +454,8 @@ class Tekkenizer:
         ``utils.timing.COUNTERS``): rows re-encoded on the host after a
         bucket overflow (``overflow_rows``), spans merged and spliced on the
         host (``fb_spans``), misses over 8 bytes merged on the device
-        (``device_long_rows``)."""
+        (``device_long_rows``), docs whose ids were assembled from the flat
+        rank array (``flat_id_docs``: all but the oversize docs)."""
         return self._last_batch_stats
 
     def _get_packed_encoder(self, texts):

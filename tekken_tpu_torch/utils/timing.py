@@ -16,7 +16,7 @@ stage timer, and the encode path's recorder:
 - ``COUNTERS``, the process-wide counts of the work done (kernel launches,
   encode calls, host-merged spans, device-merged long misses, overflow
   rows, readback bytes, the uploaded planes' bytes and their live bytes,
-  decode calls, tokens and bytes).
+  decode calls, tokens and bytes, docs given ids from the flat array).
 
 ``Tekkenizer.decode_batch(clock=...)`` records its spans on the same
 clock (``tekken.decode_batch`` and its children).
@@ -121,7 +121,10 @@ class Counters:
       (the rest is padding);
     - ``decode_calls``, ``decode_tokens``, ``decode_bytes``:
       ``Tekkenizer.decode_batch`` calls, the ids they took (specials
-      included) and the bytes the device decoded.
+      included) and the bytes the device decoded;
+    - ``flat_id_docs``: docs whose public ids ``Tekkenizer.encode_batch``
+      assembled from the flat rank array (all but those it cut as
+      oversize).
 
     A call's own counts are the difference of ``totals`` across it:
     ``since`` gives them as ``PackedEncoder.stats`` and
@@ -129,10 +132,11 @@ class Counters:
 
     NAMES = ("encode_calls", "host_merge_spans", "device_long_rows",
              "overflow_rows", "readback_bytes", "plane_bytes", "text_bytes",
-             "decode_calls", "decode_tokens", "decode_bytes")
+             "decode_calls", "decode_tokens", "decode_bytes", "flat_id_docs")
     # the per-call views' keys and the totals they read
     VIEWS = {"overflow_rows": "overflow_rows", "fb_spans": "host_merge_spans",
-             "device_long_rows": "device_long_rows"}
+             "device_long_rows": "device_long_rows",
+             "flat_id_docs": "flat_id_docs"}
 
     def __init__(self):
         self.launches: dict[str, int] = {}
@@ -142,9 +146,10 @@ class Counters:
         self.totals[name] += n
 
     def since(self, before: dict[str, int]) -> dict[str, int]:
-        """The rows re-encoded on the host, the spans merged on the host
-        and the long bucket's rows merged on the device since ``before``, a
-        copy of ``totals``."""
+        """The rows re-encoded on the host, the spans merged on the host,
+        the long bucket's rows merged on the device and the docs whose ids
+        were assembled from the flat array since ``before``, a copy of
+        ``totals``."""
         return {view: self.totals[name] - before[name]
                 for view, name in self.VIEWS.items()}
 

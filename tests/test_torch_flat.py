@@ -199,7 +199,8 @@ def test_flat_general_long_rows_match_oracle(toks):
     penc = tpacked.PackedEncoder(port, rows=4, row_len=16384, device="cpu")
     buf, lens = penc.pack(texts)
     assert max(lens) > 8192
-    got = penc._encode_buffer(buf, lens, len(texts), None)
+    got = tpacked.split_ids(*penc._encode_buffer(buf, lens, len(texts),
+                                                 None))
     assert got == [encode_ranks(t, tok.ranks) for t in texts]
 
 
@@ -215,6 +216,7 @@ def test_encode_buffer_unrouted_matches_jax(toks):
     penc = tpacked.PackedEncoder(port, rows=B8, row_len=R256, device="cpu")
     jenc = JEncoder(tok, rows=B8, row_len=R256)
     buf, lens = penc.pack(texts)
-    got = penc._encode_buffer(buf, lens, len(texts), None)
+    got = tpacked.split_ids(*penc._encode_buffer(buf, lens, len(texts),
+                                                 None))
     assert got == jenc._encode_buffer(buf, lens, len(texts), None)
     assert got == [encode_ranks(t, tok.ranks) for t in texts]

@@ -268,7 +268,8 @@ def test_default_encoder_splices_only_misses_over_32_bytes(toks, monkeypatch):
     assert n_long > 20 and n_host > 10 and n_long + n_host <= 64
     assert min(spliced) > 32 and len(spliced) == n_host
     assert port.last_batch_stats == {"overflow_rows": 0, "fb_spans": n_host,
-                                     "device_long_rows": n_long}
+                                     "device_long_rows": n_long,
+                                     "flat_id_docs": len(texts)}
 
 
 def test_long_bucket_device_merge(toks, monkeypatch):
@@ -308,3 +309,47 @@ def test_pipeline_refuses_unrouted(toks):
         with pytest.raises(ValueError, match="route"):
             packed_encode(torch.from_numpy(buf), torch.from_numpy(lens),
                           port.device_tables("cpu"), route)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "overflow", "empty"])
+def test_packed_encoder_lists_split_the_flat_result(toks, monkeypatch, kind):
+    """``PackedEncoder.encode_batch`` is a split of ``_encode_flat``: the
+    oracle's rank lists of Python ints, in input order, whether the docs
+    ran in one buffer, in route groups joined by one gather, or with
+    overflow rows spliced in from the host."""
+    tok, port = toks
+    rng = random.Random(3)
+    texts = {"mixed": ["Hello world", "", "two  spaces 1234",
+                       "café " + _prose(rng, 20), _prose(rng, 30)],
+             "overflow": [_prose(rng, 60, long_share=0.3) for _ in range(5)]
+             + ["naïve " + _prose(rng, 40, long_share=0.3)],
+             "empty": []}[kind]
+    if kind == "overflow":
+        monkeypatch.setattr(tpacked, "default_np_cap", lambda n: 4)
+    enc = tpacked.PackedEncoder(port, rows=8, row_len=1024, device="cpu")
+    flat, cuts = enc._encode_flat(texts)
+    assert flat.dtype == np.int32 and cuts.dtype == np.int64
+    assert cuts.size == len(texts) + 1 and cuts[-1] == flat.size
+    got = enc.encode_batch(texts)
+    assert (enc.stats["overflow_rows"] > 0) == (kind == "overflow")
+    assert got == tpacked.split_ids(flat, cuts)
+    assert got == [encode_ranks(t, tok.ranks) for t in texts]
+    assert all(type(r) is int for d in got for r in d)
+
+
+def test_take_segments_matches_a_loop():
+    """``take_segments`` gathers the segments back to back, empty ones
+    included, as a loop of slices does."""
+    rng = np.random.default_rng(9)
+    flat = rng.integers(0, 1000, 200).astype(np.int32)
+    starts = rng.integers(0, 150, 40)
+    counts = rng.integers(0, 50, 40)
+    counts[::7] = 0
+    got, cuts = tpacked.take_segments(flat, starts, counts)
+    want = [flat[s:s + c] for s, c in zip(starts, counts)]
+    assert got.dtype == flat.dtype
+    assert got.tolist() == np.concatenate(want).tolist()
+    assert np.diff(cuts).tolist() == counts.tolist() and cuts[0] == 0
+    assert tpacked.split_ids(got, cuts) == [w.tolist() for w in want]
+    empty, cuts = tpacked.take_segments(flat, [], [])
+    assert empty.size == 0 and cuts.tolist() == [0]

@@ -180,3 +180,67 @@ def test_port_imports_no_jax():
     for f in files:
         hits = pat.findall(f.read_text(encoding="utf-8"))
         assert not hits, (f, hits)
+
+
+def _lower_words(seed, n, lo=2, hi=12):
+    import random
+    import string
+
+    rng = random.Random(seed)
+    return " ".join("".join(rng.choice(string.ascii_lowercase)
+                            for _ in range(rng.randint(lo, hi)))
+                    for _ in range(n))
+
+
+# (texts, MAX_BATCH_BYTES patched to 4096, bucket capacity patched to 4):
+# the ways encode_batch assembles ids from its flat rank array
+FLAT_ID_CASES = {
+    "empty_batch": ([], False, False),
+    "empty_docs": (["", "Hello, World!", ""], False, False),
+    "routes123": (["Hello, World!", "", "two  spaces 123456",
+                   "café 中文 \U0001f600", "it's a test."], False, False),
+    "overflow": (["x y", _lower_words(5, 80), "café " + _lower_words(6, 60),
+                  "two  spaces " + _lower_words(7, 40)], False, True),
+    "oversize": (["short doc", "one piece " + "q" * 600 + " then words",
+                  _lower_words(8, 120), ""], True, False),
+    "sub_batches": ([_lower_words(i, 6) for i in range(20)] + ["é"],
+                    True, False),
+}
+
+
+@pytest.fixture(scope="module")
+def flat_port(merged_tokenizer):
+    return _port(merged_tokenizer)
+
+
+@pytest.mark.parametrize("bos,eos", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+@pytest.mark.parametrize("case", sorted(FLAT_ID_CASES))
+def test_encode_batch_ids_from_the_flat_array(merged_tokenizer, flat_port,
+                                              monkeypatch, case, bos, eos):
+    """encode_batch builds each doc's ids from one flat rank array (the
+    shift and BOS/EOS placed in numpy): they equal ``encode``'s, doc for
+    doc, as lists of Python ints, for every BOS/EOS pair, empty docs and
+    batches, route groups, overflow rows re-encoded on the host, a doc cut
+    as oversize and row sub-batches.  ``flat_id_docs`` counts every doc
+    but the oversize ones."""
+    import tekken_tpu_torch.tekkenizer as ttk
+    from tekken_tpu_torch.ops import packed
+
+    texts, small_batch, small_cap = FLAT_ID_CASES[case]
+    port = flat_port
+    monkeypatch.setattr(port, "_packed_encoders", {})
+    if small_batch:
+        monkeypatch.setattr(ttk, "MAX_BATCH_BYTES", 4096)
+    if small_cap:
+        monkeypatch.setattr(packed, "default_np_cap", lambda n: 4)
+    budget = ttk.MAX_BATCH_BYTES // 8
+    n_over = sum(len(t.encode()) > budget for t in texts)
+    got = port.encode_batch(texts, bos, eos)
+    want = [merged_tokenizer.encode(t, bos, eos) for t in texts]
+    assert got == want == [port.encode(t, bos, eos) for t in texts]
+    assert all(type(i) is int for doc in got for i in doc)
+    stats = port.last_batch_stats
+    assert stats["flat_id_docs"] == len(texts) - n_over
+    assert (n_over > 0) == (case == "oversize")
+    assert (stats["overflow_rows"] > 0) == small_cap

@@ -179,6 +179,7 @@ def test_counters_agree_with_last_batch_stats(tok, monkeypatch, overflow):
     assert got["host_merge_spans"] == stats["fb_spans"] > 0
     assert got["device_long_rows"] == stats["device_long_rows"] > 0
     assert got["overflow_rows"] == stats["overflow_rows"]
+    assert got["flat_id_docs"] == stats["flat_id_docs"] == len(texts)
     assert (stats["overflow_rows"] > 0) == overflow
     n_over = [r.name for r in clock.spans].count("tekken.overflow_rows")
     assert (n_over > 0) == overflow
@@ -186,7 +187,8 @@ def test_counters_agree_with_last_batch_stats(tok, monkeypatch, overflow):
     enc = tok._get_packed_encoder(texts)
     ns = tok.num_special_tokens()
     assert enc.encode_batch(texts) == [[i - ns for i in d] for d in ids]
-    assert enc.stats == stats
+    # the packed encoder assembles no public ids
+    assert enc.stats == dict(stats, flat_id_docs=0)
 
 
 def test_benchmark_reads_the_long_rows_counter(tok):
@@ -211,6 +213,46 @@ def test_benchmark_reads_the_long_rows_counter(tok):
         assert reader.read(None) is None
     finally:
         t["device_long_rows"] = saved
+
+
+def _reader(name):
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "metrics", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name.replace(".", "_"),
+                                                  path)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    return reader
+
+
+@pytest.mark.parametrize("case", ["route1", "mixed", "overflow"])
+def test_flat_ids_keep_the_marks_and_spans(tok, monkeypatch, case):
+    """With ids built from the flat rank array, a clocked call still
+    records the ``splice`` and ``public_ids`` marks and the
+    ``tekken.doc_lists`` and ``tekken.public_ids`` spans (one public_ids
+    span a call), in one buffer, with route groups joined by a gather and
+    with overflow rows spliced in; the benchmark's readers of
+    ``public_ids_ms``, ``splice_ms`` and ``doc_lists_ms`` read them."""
+    from types import SimpleNamespace
+
+    texts = (_texts(tok, monkeypatch, True) if case == "overflow"
+             else CASES[case][0])
+    clock, ids = _clocked(tok, texts, add_beginning_of_sequence=True)
+    assert {"splice", "public_ids"} <= set(clock.times)
+    names = [r.name for r in clock.spans]
+    assert names.count("tekken.public_ids") == 1
+    assert "tekken.doc_lists" in names
+    assert ("tekken.overflow_rows" in names) == (case == "overflow")
+    assert tok.last_batch_stats["flat_id_docs"] == len(texts)
+    ctx = SimpleNamespace(stages=[dict(clock.times)])
+    for name in ("public_ids_ms.corpus", "splice_ms.corpus",
+                 "doc_lists_ms.corpus"):
+        got = _reader(name).read(ctx)
+        assert got is not None and got > 0, name
+    assert ids == tok.encode_batch(texts, True)
 
 
 def test_off_records_nothing(tok, monkeypatch):
