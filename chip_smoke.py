@@ -228,21 +228,16 @@ def clip_bytes(doc, n):
 
 
 def pack_rows(texts, R):
-    """(B, R) uint8 rows of the texts' first R bytes and their lengths, on
-    the card."""
-    buf = np.zeros((len(texts), R), np.uint8)
-    lens = np.zeros(len(texts), np.int32)
-    for i, t in enumerate(texts):
-        d = t.encode("utf-8")[:R]
-        buf[i, :len(d)] = np.frombuffer(d, np.uint8)
-        lens[i] = len(d)
+    """(B, R) uint8 rows of the texts (each of at most R bytes) and their
+    lengths, on the card."""
+    buf, lens = packed_mod.pack_rows(texts, len(texts), R)
     return torch.from_numpy(buf).to(DEV), torch.from_numpy(lens).to(DEV)
 
 
 def route1_batch(words, rng, ranks, B, R):
     """Bench corpus with ~2% of the words replaced by out-of-vocabulary
     words of 3-8 letters (4-9-byte misses: the P=4 and P=8 buckets) and
-    ~0.2% by words of 9-14 letters (host-spliced spans)."""
+    ~0.2% by words of 9-14 letters (10-15-byte misses: the P=32 bucket)."""
     out = []
     for d in build_corpus(words, rng, B, R):
         ws = d.split(" ")
@@ -630,14 +625,18 @@ def path_c(tok, batches, routed_out, flat_out):
                          batches, routed_out, res)
 
         # encode_batch's one collective that carries data, alone: the
-        # gather of the route-1 batch's docs
+        # gather of the route-1 batch's (flat, cuts)
         gather_docs = docs["route1_bench"]
+        part = (np.concatenate([np.asarray(d, np.int32)
+                                for d in gather_docs]),
+                np.cumsum([0] + [len(d) for d in gather_docs]))
         parts = [None]
         g_s, g_lo, g_hi = median_s(lambda: dist.all_gather_object(
-            parts, (gather_docs, False), group=mesh.group))
+            parts, part, group=mesh.group))
         log(f"[dp] all_gather_object of the route-1 batch's "
-            f"{len(gather_docs)} docs: median of 5 {g_s * 1e3:.1f} ms "
-            f"(min {g_lo * 1e3:.1f}, max {g_hi * 1e3:.1f})")
+            f"{len(gather_docs)} docs' flat ranks: median of 5 "
+            f"{g_s * 1e3:.1f} ms (min {g_lo * 1e3:.1f}, max "
+            f"{g_hi * 1e3:.1f})")
         res["dp_all_gather_route1_bench"] = {
             "e2e_s": g_s, "e2e_min_max_s": [g_lo, g_hi]}
 
@@ -645,15 +644,16 @@ def path_c(tok, batches, routed_out, flat_out):
         denc = DistributedEncoder(tok, mesh=mesh, rows=B_MAIN, row_len=ROW)
         texts = batches["route1_bench"]
         nbytes = sum(len(t.encode("utf-8")) for t in texts)
-        buf, lens = denc._pack(texts, B_MAIN)
+        buf, lens = packed_mod.pack_rows(texts, B_MAIN, ROW)
         _build.reset_launches()
-        docs, n_bytes, _ = denc._encode_buffer(buf, lens, len(texts), None)
+        docs = packed_mod.split_ids(*denc._encode_buffer(buf, lens,
+                                                         len(texts), None))
         torch.cuda.synchronize()
         counts = dict(_build.LAUNCHES)
         if (counts["stage1_fused"] != 1 or counts["stage1_compact"]
                 or counts["merge_rows"] != 1):
             raise AssertionError(f"[dp] route=None: launches {counts}")
-        if docs != flat_out["route1_bench"] or n_bytes != nbytes:
+        if docs != flat_out["route1_bench"]:
             raise AssertionError("[dp] route=None: the docs differ from the "
                                  "flat path's")
         log(f"[dp] encode_step(route=None) route1_bench: launches {counts}; "

@@ -27,6 +27,7 @@ import torch
 
 from .bpe import INF, probe2, probe_pairs
 from .hashing import MASK32, mul32
+from .packed import pack_rows
 from .pretokenize import _cummax, _rcummin, byte_boundaries, row_valid
 
 
@@ -242,19 +243,7 @@ class FlatEncoder:
         self._R = row_len
 
     def pack(self, texts):
-        datas = [t.encode("utf-8") for t in texts]
-        if len(datas) > self._B:
-            raise ValueError(f"{len(datas)} docs exceed {self._B} rows")
-        buf = np.zeros((self._B, self._R), dtype=np.uint8)
-        lengths = np.zeros(self._B, dtype=np.int32)
-        for i, d in enumerate(datas):
-            if len(d) > self._R:
-                raise ValueError(f"doc of {len(d)} bytes exceeds row "
-                                 f"{self._R}")
-            if d:
-                buf[i, :len(d)] = np.frombuffer(d, dtype=np.uint8)
-            lengths[i] = len(d)
-        return buf, lengths
+        return pack_rows(texts, self._B, self._R)
 
     def encode_batch(self, texts):
         buf, lengths = self.pack(texts)

@@ -65,9 +65,11 @@ from .pretokenize import (GENERAL_MAX_ROW, ascii_boundaries, byte_boundaries,
 from .stage1 import stage1_compact, stage1_fused, stage1_planes
 
 __all__ = ["P_LANES", "P_SHORT", "PackedEncoder", "StageClock",
-           "default_np_cap", "doc_routes", "host_route", "oracle_merge_fn",
-           "packed_encode", "piece_safe_segments", "probe2",
-           "splice_host_merges", "split_ids", "take_segments"]
+           "assemble_rows", "default_np_cap", "doc_routes",
+           "encode_route_groups", "host_route", "oracle_merge_fn",
+           "pack_rows", "packed_encode", "piece_safe_segments", "probe2",
+           "route_groups", "splice_host_merges", "split_ids",
+           "take_segments"]
 
 P_LANES = 32
 P_SHORT = 8
@@ -514,6 +516,23 @@ def _merge_buckets(tok, w, byte_rank, plen, counts, caps, tables,
 # host side (numpy)
 # --------------------------------------------------------------------- #
 
+def pack_rows(texts, rows: int, row_len: int):
+    """The texts' UTF-8 bytes in a zeroed (rows, row_len) uint8 buffer, one
+    doc a row, and their lengths (int32, 0 past the last doc)."""
+    datas = [t.encode("utf-8") for t in texts]
+    if len(datas) > rows:
+        raise ValueError(f"{len(datas)} docs exceed {rows} rows")
+    buf = np.zeros((rows, row_len), dtype=np.uint8)
+    lengths = np.zeros(rows, dtype=np.int32)
+    for i, d in enumerate(datas):
+        if len(d) > row_len:
+            raise ValueError(f"doc of {len(d)} bytes exceeds row {row_len}")
+        if d:
+            buf[i, :len(d)] = np.frombuffer(d, dtype=np.uint8)
+        lengths[i] = len(d)
+    return buf, lengths
+
+
 def host_route(buf: np.ndarray) -> int:
     """The routing decision over a whole buffer: 1 simple ASCII / 2 general
     ASCII / 3 UTF-8 (padding zeros are neither whitespace nor digits)."""
@@ -645,6 +664,23 @@ def splice_host_merges(out, out_pos, flat, fb_start, fb_len, merge_fn,
         return out[o], out_pos[o]
 
 
+def _pow2(n: int, lo: int) -> int:
+    """The smallest power-of-two multiple of ``lo`` that is >= n."""
+    b = lo
+    while b < n:
+        b <<= 1
+    return b
+
+
+def _join(parts):
+    """Consecutive row sub-batches' (flat, cuts) as one (flat, cuts)."""
+    flat = np.concatenate([f for f, _ in parts])
+    offsets = np.cumsum([0] + [f.size for f, _ in parts])
+    cuts = np.concatenate([np.zeros(1, dtype=np.int64)] + [
+        c[1:] + o for (_, c), o in zip(parts, offsets)])
+    return flat, cuts
+
+
 def take_segments(flat, starts, counts):
     """``flat[starts[i]:starts[i] + counts[i]]`` for every i, back to back,
     in one gather, and their cuts (int64, ``len(counts) + 1``)."""
@@ -677,6 +713,85 @@ def oracle_merge_fn(ranks):
             cnts[i] = len(t)
         return np.asarray(toks, np.int32), cnts
     return fn
+
+
+def route_groups(routes, lo: int, hi: int):
+    """The row sub-batches of a batch whose docs take more than one route:
+    each route's docs (``routes``, one a doc) in input order, in runs of
+    Bg rows, Bg the power-of-two multiple of ``lo`` that holds them all,
+    at most ``hi``.  Yields (route, the docs' indices, Bg)."""
+    for r in sorted(set(routes.tolist())):
+        idx = np.flatnonzero(routes == r)
+        Bg = min(_pow2(idx.size, lo), hi)
+        for s in range(0, idx.size, Bg):
+            yield r, idx[s:s + Bg], Bg
+
+
+def encode_route_groups(buf, lengths, routes, lo: int, encode_buffer,
+                        clock=None):
+    """Run each ``route_groups(routes, lo, rows)`` sub-batch of a packed
+    (rows, R) batch through ``encode_buffer(sub_buf, sub_len, n_docs,
+    route, clock) -> (flat, cuts)``, on rows cut from ``buf``, and join
+    the groups' results in input order with one gather: (flat, cuts)."""
+    B, R = buf.shape
+    flats = []
+    starts = np.empty(routes.size, dtype=np.int64)
+    counts = np.empty(routes.size, dtype=np.int64)
+    base = 0
+    for r, sel, Bg in route_groups(routes, lo, B):
+        with span("tekken.pack", clock):
+            sub_buf = np.zeros((Bg, R), dtype=np.uint8)
+            sub_buf[:sel.size] = buf[sel]
+            sub_len = np.zeros(Bg, dtype=np.int32)
+            sub_len[:sel.size] = lengths[sel]
+            mark(clock, "route_pack")
+        flat, cuts = encode_buffer(sub_buf, sub_len, sel.size, r, clock)
+        flats.append(flat)
+        starts[sel] = base + cuts[:-1]
+        counts[sel] = np.diff(cuts)
+        base += flat.size
+    with span("tekken.doc_lists", clock):
+        flat, cuts = take_segments(np.concatenate(flats), starts, counts)
+        mark(clock, "splice")
+    return flat, cuts
+
+
+def assemble_rows(tok, fb_start, fb_len, bad_rows, buf, lengths,
+                  n_docs: int, merge_fn, host_ranks, clock=None):
+    """The first ``n_docs`` rows' ranks from one (Bg, R) buffer's
+    read-back ``packed_encode`` output (numpy): the device tokens, the
+    spans in ``fb_start``/``fb_len`` merged by ``merge_fn`` and spliced in
+    (``splice_host_merges``), and the ``bad_rows`` (those that held
+    dropped pieces) re-encoded by ``host_ranks(text)``.  Returns (flat,
+    cuts): the ranks as one int32 array and the row cuts (int64,
+    ``n_docs + 1``)."""
+    R = buf.shape[1]
+    with span("tekken.doc_lists", clock):
+        out_pos = np.flatnonzero(tok >= 0).astype(np.int64)
+        out = tok[out_pos]
+    out, out_pos = splice_host_merges(
+        out, out_pos, buf.reshape(-1), fb_start, fb_len, merge_fn,
+        clock=clock)
+    with span("tekken.doc_lists", clock):
+        cuts = np.searchsorted(out_pos // R, np.arange(n_docs + 1))
+        out = out[:cuts[-1]]
+    if bad_rows.size:
+        with span("tekken.overflow_rows", clock):
+            COUNTERS.add("overflow_rows", bad_rows.size)
+            bad = bad_rows[bad_rows < n_docs]
+            host = [host_ranks(buf[i, :lengths[i]].tobytes().decode("utf-8"))
+                    for i in bad.tolist()]
+            # the bad rows' device tokens give way to the host's
+            starts, counts = cuts[:-1].copy(), np.diff(cuts)
+            n_host = np.fromiter(map(len, host), np.int64, len(host))
+            starts[bad] = out.size + np.cumsum(n_host) - n_host
+            counts[bad] = n_host
+            out, cuts = take_segments(
+                np.concatenate([out, np.fromiter(
+                    (r for h in host for r in h), out.dtype)]),
+                starts, counts)
+    mark(clock, "splice")
+    return out, cuts
 
 
 class PackedEncoder:
@@ -714,25 +829,13 @@ class PackedEncoder:
         self._R = row_len
         self._np_cap = (np_cap if np_cap is not None
                         else default_np_cap(rows * row_len))
-        self._tokenizer = tokenizer   # the host engine of overflow rows
+        self._host_ranks = tokenizer._host_ranks  # of overflow rows
         self._merge_fn = (tokenizer._host_merge_fn() if self._host_merge
                           else oracle_merge_fn(tokenizer.ranks))
         self.stats = dict.fromkeys(COUNTERS.VIEWS, 0)
 
     def pack(self, texts):
-        datas = [t.encode("utf-8") for t in texts]
-        if len(datas) > self._B:
-            raise ValueError(f"{len(datas)} docs exceed {self._B} rows")
-        buf = np.zeros((self._B, self._R), dtype=np.uint8)
-        lengths = np.zeros(self._B, dtype=np.int32)
-        for i, d in enumerate(datas):
-            if len(d) > self._R:
-                raise ValueError(f"doc of {len(d)} bytes exceeds row "
-                                 f"{self._R}")
-            if d:
-                buf[i, :len(d)] = np.frombuffer(d, dtype=np.uint8)
-            lengths[i] = len(d)
-        return buf, lengths
+        return pack_rows(texts, self._B, self._R)
 
     def encode_batch(self, texts, clock=None):
         """Per-doc rank lists, in input order."""
@@ -751,42 +854,13 @@ class PackedEncoder:
         with span("tekken.pack", clock):
             buf, lengths = self.pack(texts)
             routes = doc_routes(buf)[:len(texts)]
-            distinct = sorted(set(routes.tolist())) if len(texts) else [1]
+            mixed = len(set(routes.tolist())) > 1
             mark(clock, "route_pack")
-            route = host_route(buf) if len(distinct) <= 1 else None
-        if len(distinct) <= 1:
-            return self._encode_buffer(buf, lengths, len(texts), route,
-                                       clock)
-        # each group's docs back in input order: one gather over the
-        # groups' flat arrays
-        flats = []
-        starts = np.empty(len(texts), dtype=np.int64)
-        counts = np.empty(len(texts), dtype=np.int64)
-        base = 0
-        for r in distinct:
-            idx = np.flatnonzero(routes == r)
-            Bg = 8
-            while Bg < idx.size:
-                Bg <<= 1
-            Bg = min(Bg, self._B)
-            for lo in range(0, idx.size, Bg):
-                with span("tekken.pack", clock):
-                    sel = idx[lo:lo + Bg]
-                    sub_buf = np.zeros((Bg, self._R), dtype=np.uint8)
-                    sub_buf[:sel.size] = buf[sel]
-                    sub_len = np.zeros(Bg, dtype=np.int32)
-                    sub_len[:sel.size] = lengths[sel]
-                    mark(clock, "route_pack")
-                flat, cuts = self._encode_buffer(sub_buf, sub_len, sel.size,
-                                                 int(r), clock)
-                flats.append(flat)
-                starts[sel] = base + cuts[:-1]
-                counts[sel] = np.diff(cuts)
-                base += flat.size
-        with span("tekken.doc_lists", clock):
-            flat, cuts = take_segments(np.concatenate(flats), starts, counts)
-            mark(clock, "splice")
-        return flat, cuts
+            route = None if mixed else host_route(buf)
+        if mixed:
+            return encode_route_groups(buf, lengths, routes, 8,
+                                       self._encode_buffer, clock)
+        return self._encode_buffer(buf, lengths, len(texts), route, clock)
 
     def _encode_buffer(self, buf, lengths, n_docs: int, route: int | None,
                        clock=None):
@@ -819,31 +893,5 @@ class PackedEncoder:
             bad_rows = (np.flatnonzero(back[3].numpy()) if overflow
                         else np.empty(0, dtype=np.int64))
             mark(clock, "readback", dev)
-
-        with span("tekken.doc_lists", clock):
-            out_pos = np.flatnonzero(tok >= 0).astype(np.int64)
-            out = tok[out_pos]
-        out, out_pos = splice_host_merges(
-            out, out_pos, buf.reshape(-1), fb_start, fb_len, self._merge_fn,
-            clock=clock)
-        with span("tekken.doc_lists", clock):
-            cuts = np.searchsorted(out_pos // self._R, np.arange(n_docs + 1))
-            out = out[:cuts[-1]]
-        if bad_rows.size:
-            with span("tekken.overflow_rows", clock):
-                COUNTERS.add("overflow_rows", bad_rows.size)
-                bad = bad_rows[bad_rows < n_docs]
-                host = [self._tokenizer._host_ranks(
-                    buf[i, :lengths[i]].tobytes().decode("utf-8"))
-                    for i in bad.tolist()]
-                # the bad rows' device tokens give way to the host's
-                starts, counts = cuts[:-1].copy(), np.diff(cuts)
-                n_host = np.fromiter(map(len, host), np.int64, len(host))
-                starts[bad] = out.size + np.cumsum(n_host) - n_host
-                counts[bad] = n_host
-                out, cuts = take_segments(
-                    np.concatenate([out, np.fromiter(
-                        (r for h in host for r in h), out.dtype)]),
-                    starts, counts)
-        mark(clock, "splice")
-        return out, cuts
+        return assemble_rows(tok, fb_start, fb_len, bad_rows, buf, lengths,
+                             n_docs, self._merge_fn, self._host_ranks, clock)

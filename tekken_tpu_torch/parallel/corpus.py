@@ -46,7 +46,7 @@ class CorpusEncoder:
                                        row_len=row_len)
         self._rows = rows
         self._row_len = row_len
-        self._ranks = tokenizer.ranks
+        self._merge_pieces = tokenizer._merge_pieces
         self._shift = tokenizer.num_special_tokens()
         self.meter = Meter()
 
@@ -61,11 +61,10 @@ class CorpusEncoder:
         ``on_batch(doc_ids: list[list[int]])`` receives batches of public
         token ids in input order.  Documents longer than the row budget are
         split at piece-safe boundaries and ride the device path as multiple
-        rows (their ids concatenate exactly); only a single piece larger
-        than a whole row — pathological input — touches the host oracle.
+        rows (their ids concatenate exactly); the pieces that cannot be cut
+        into a row (pathological input) are merged on the host, piece by
+        piece (``Tekkenizer._merge_pieces``).
         """
-        from ..oracle import byte_pair_merge
-
         shift = self._shift if add_special_shift else 0
         # device-pending rows and, per logical doc, its segment plan:
         # ('d', pending_index) awaiting a device result, ('r', ranks) a
@@ -119,10 +118,7 @@ class CorpusEncoder:
                     group = [text] if kind == "h" else text
                     n_b = sum(len(p.encode("utf-8")) for p in group)
                     with self.meter.measure(n_bytes=n_b):
-                        ranks = []
-                        for p in group:
-                            ranks.extend(byte_pair_merge(
-                                p.encode("utf-8"), self._ranks))
+                        ranks = self._merge_pieces(group)
                     self.meter.tokens_total += len(ranks)
                     plan.append(("hr", ranks))
                 else:

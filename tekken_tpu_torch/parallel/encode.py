@@ -5,11 +5,12 @@ The JAX package's ``DistributedEncoder`` runs one controller over a
 each shard runs the packed encode, the counters are ``psum``'d, and the
 controller does the host work of every shard.  Here each rank is a
 process with one device (SPMD: every rank of the group calls with the same
-inputs): it uploads and encodes its own rows, merges and splices its own
-fallback spans and re-encodes its own overflow rows, and the ranks meet in
-one ``all_reduce`` of the counters and, in ``encode_batch``, one
-``all_gather_object`` of the docs.  Documents are independent, so the
-sharding is exact.
+inputs): it uploads and encodes its own rows and assembles their ranks on
+the host as ``PackedEncoder`` does (``ops.packed.assemble_rows``: spans
+merged and spliced, overflow rows re-encoded), and the ranks meet in one
+``all_reduce`` of the counters and, in ``encode_batch``, one
+``all_gather_object`` of each shard's (flat, cuts) arrays.  Documents are
+independent, so the sharding is exact.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.packed import (default_np_cap, doc_routes, host_route,
-                          packed_encode, splice_host_merges)
+from ..ops.packed import (_join, assemble_rows, default_np_cap, doc_routes,
+                          encode_route_groups, host_route, pack_rows,
+                          packed_encode, split_ids)
 from ..tables import DeviceTables
 from .mesh import dp_sharded, make_dp_mesh, replicated
 
@@ -103,97 +105,36 @@ class DistributedEncoder:
         Routing is per row group as in PackedEncoder: when the batch mixes
         routes, each route's docs run in their own distributed step of
         rows a power of two from the mesh size up."""
-        if len(texts) > self._B:
-            raise ValueError(f"{len(texts)} docs exceed {self._B} rows")
-        buf, lengths = self._pack(texts, self._B)
+        buf, lengths = pack_rows(texts, self._B, self._R)
         routes = doc_routes(buf)[:len(texts)]
-        distinct = sorted(set(routes.tolist())) if len(texts) else [1]
-        if len(distinct) <= 1:
-            return self._encode_buffer(buf, lengths, len(texts),
-                                       host_route(buf))
+        self.last_overflow_rows = 0
+        if len(set(routes.tolist())) > 1:
+            flat, cuts = encode_route_groups(buf, lengths, routes,
+                                             self.mesh.size,
+                                             self._encode_buffer)
+        else:
+            flat, cuts = self._encode_buffer(buf, lengths, len(texts),
+                                             host_route(buf))
+        return split_ids(flat, cuts), int(lengths.sum()), int(flat.size)
 
-        n = self.mesh.size
-        results: list = [None] * len(texts)
-        total_bytes = 0
-        n_tokens = 0
-        overflow_rows = 0
-        for r in distinct:
-            idx = np.flatnonzero(routes == r)
-            Bg = n
-            while Bg < idx.size:
-                Bg <<= 1
-            Bg = min(Bg, self._B)
-            for lo in range(0, idx.size, Bg):
-                sel = idx[lo:lo + Bg]
-                sub = [texts[int(i)] for i in sel]
-                sub_buf, sub_len = self._pack(sub, Bg)
-                docs_g, bytes_g, toks_g = self._encode_buffer(
-                    sub_buf, sub_len, len(sub), int(r))
-                overflow_rows += self.last_overflow_rows
-                total_bytes += bytes_g
-                n_tokens += toks_g
-                for j, i in enumerate(sel):
-                    results[int(i)] = docs_g[j]
-        self.last_overflow_rows = overflow_rows
-        return results, total_bytes, n_tokens
-
-    def _pack(self, texts, rows: int):
-        buf = np.zeros((rows, self._R), dtype=np.uint8)
-        lengths = np.zeros(rows, dtype=np.int32)
-        for i, t in enumerate(texts):
-            d = t.encode("utf-8")
-            if len(d) > self._R:
-                raise ValueError(f"doc of {len(d)} bytes exceeds row "
-                                 f"{self._R}")
-            if d:
-                buf[i, :len(d)] = np.frombuffer(d, dtype=np.uint8)
-            lengths[i] = len(d)
-        return buf, lengths
-
-    def _encode_buffer(self, buf, lengths, n_docs: int, route: int):
-        """One distributed step over a packed (Bg, R) buffer, this rank's
-        host post-processing (fb splice, per-row overflow re-encode), and
-        the gather of every rank's docs."""
-        (tok, _, fb_start, fb_len, _, row_bad, total_bytes, total_tokens,
+    def _encode_buffer(self, buf, lengths, n_docs: int, route: int,
+                       clock=None):
+        """One distributed step over a packed (Bg, R) buffer, the host
+        assembly of this rank's rows, and the gather of every rank's
+        (flat, cuts): the first ``n_docs`` rows' ranks, as
+        ``PackedEncoder._encode_buffer`` returns them."""
+        (tok, _, fb_start, fb_len, _, row_bad, _, _,
          overflow_rows) = self.encode_step(buf, lengths, route=route)
-
+        self.last_overflow_rows += int(overflow_rows)
         per = buf.shape[0] // self.mesh.size
         lo = self.mesh.rank * per
-        flat = buf[lo:lo + per].reshape(-1)
-        tok = tok.cpu().numpy()
-        fb_start = fb_start.cpu().numpy()
-        fb_len = fb_len.cpu().numpy()
-        row_bad = row_bad.cpu().numpy()
-
-        pos = np.flatnonzero(tok >= 0).astype(np.int64)
-        block = tok[pos]
-        # merge + splice this shard's recorded miss spans (all misses in
-        # host mode; only oversize pieces in device mode)
-        corrected = bool((fb_start >= 0).any())  # spliced tokens aren't
-        if corrected:                             # in the device counts
-            block, pos = splice_host_merges(block, pos, flat, fb_start,
-                                            fb_len, self._merge_fn)
-        cut = np.searchsorted(pos // self._R, np.arange(per + 1))
-        docs: list[list[int]] = []
-        for r in range(per):
-            if row_bad[r]:
-                # a bucket overflow corrupts only this row: re-encode it
-                # alone on the host
-                corrected = True
-                data = flat[r * self._R:r * self._R + lengths[lo + r]]
-                docs.append(self._host_ranks(data.tobytes().decode("utf-8")))
-            else:
-                docs.append(block[cut[r]:cut[r + 1]].tolist())
-
+        part = assemble_rows(
+            tok.cpu().numpy(), fb_start.cpu().numpy(), fb_len.cpu().numpy(),
+            row_bad.nonzero()[:, 0].cpu().numpy(), buf[lo:lo + per],
+            lengths[lo:lo + per], min(max(n_docs - lo, 0), per),
+            self._merge_fn, self._host_ranks, clock)
+        parts = [part]
         if self.mesh.group is not None:
-            parts: list = [None] * self.mesh.size
-            dist.all_gather_object(parts, (docs, corrected),
-                                   group=self.mesh.group)
-        else:
-            parts = [(docs, corrected)]
-        docs = [d for part, _ in parts for d in part][:n_docs]
-        corrected = any(c for _, c in parts)
-        n_tokens = (sum(len(d) for d in docs) if corrected
-                    else int(total_tokens))
-        self.last_overflow_rows = int(overflow_rows)
-        return docs, int(total_bytes), n_tokens
+            parts = [None] * self.mesh.size
+            dist.all_gather_object(parts, part, group=self.mesh.group)
+        return _join(parts)

@@ -36,6 +36,8 @@ from .errors import (
     TokenizersError,
     TokenNotFoundError,
 )
+from .ops.packed import (PackedEncoder, _join, _pow2, oracle_merge_fn,
+                         piece_safe_segments, split_ids, take_segments)
 from .oracle import TEKKEN_PATTERN, encode_ranks
 from .special_tokens import (
     SpecialTokenInfo,
@@ -57,23 +59,6 @@ from .vocab import (
 # run as several row sub-batches, and a doc longer than an 8-row buffer's
 # row (MAX_BATCH_BYTES / 8) is cut into rows at piece-safe points
 MAX_BATCH_BYTES = 1 << 24
-
-
-def _pow2(n: int, lo: int) -> int:
-    """The smallest power-of-two multiple of ``lo`` that is >= n."""
-    b = lo
-    while b < n:
-        b <<= 1
-    return b
-
-
-def _join(parts):
-    """Consecutive row sub-batches' (flat, cuts) as one (flat, cuts)."""
-    flat = np.concatenate([f for f, _ in parts])
-    offsets = np.cumsum([0] + [f.size for f, _ in parts])
-    cuts = np.concatenate([np.zeros(1, dtype=np.int64)] + [
-        c[1:] + o for (_, c), o in zip(parts, offsets)])
-    return flat, cuts
 
 
 class Tekkenizer:
@@ -284,8 +269,6 @@ class Tekkenizer:
         native = self._get_native_encoder()
         if native is not None:
             return native.merge_spans
-        from .ops.packed import oracle_merge_fn
-
         return oracle_merge_fn(self._ranks)
 
     def _get_native_encoder(self):
@@ -353,8 +336,6 @@ class Tekkenizer:
         the specials' shift and BOS/EOS placed in one array, then Python
         ints made once.  A doc cut by ``_cut_oversize`` (its plan is more
         than one row) is joined from its parts as lists."""
-        from .ops.packed import split_ids, take_segments
-
         if plans is not None:
             whole = [i for i, p in enumerate(plans)
                      if len(p) == 1 and isinstance(p[0], int)]
@@ -408,8 +389,6 @@ class Tekkenizer:
         over = [n > budget for n in sizes]
         if not any(over):
             return texts, None, sum(sizes)
-        from .ops.packed import piece_safe_segments
-
         rows: list[str] = []
         plans: list[list] = []
         for t, oversize in zip(texts, over):
@@ -461,8 +440,6 @@ class Tekkenizer:
     def _get_packed_encoder(self, texts):
         """The packed encoder of the batch's shape bucket (the batch fits
         MAX_BATCH_BYTES: ``_row_batches`` splits it first)."""
-        from .ops.packed import PackedEncoder
-
         max_len = max((len(t.encode("utf-8")) for t in texts), default=1)
         rows = _pow2(max(1, len(texts)), 8)
         row_len = _pow2(max_len, 256)

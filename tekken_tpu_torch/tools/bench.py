@@ -134,13 +134,7 @@ def rate(nbytes: int, seconds: float | None) -> float | None:
 def pack_docs(texts, rows: int, row_len: int = ROW_LEN):
     """(rows, row_len) uint8 buffer of the docs' UTF-8 bytes and their
     lengths (int32), as ``bench.py``'s route sweep packs them."""
-    buf = np.zeros((rows, row_len), dtype=np.uint8)
-    lens = np.zeros(rows, dtype=np.int32)
-    for i, t in enumerate(texts):
-        d = t.encode("utf-8")
-        buf[i, :len(d)] = np.frombuffer(d, dtype=np.uint8)
-        lens[i] = len(d)
-    return buf, lens
+    return packed.pack_rows(texts, rows, row_len)
 
 
 def encoder_loop(byts, lens, tables, route, np_cap):

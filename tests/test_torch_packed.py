@@ -353,3 +353,71 @@ def test_take_segments_matches_a_loop():
     assert tpacked.split_ids(got, cuts) == [w.tolist() for w in want]
     empty, cuts = tpacked.take_segments(flat, [], [])
     assert empty.size == 0 and cuts.tolist() == [0]
+
+
+def test_assemble_rows_on_a_hand_made_readback():
+    """``assemble_rows`` on a read-back of 4 rows of 8 bytes, 3 of them
+    docs: row 0 device tokens only, row 1 a device token and a span merged
+    and spliced at its place, row 2 a bad row whose device token gives way
+    to the host's re-encode, row 3 padding past ``n_docs`` (bad too, and
+    never re-encoded)."""
+    buf, lens = tpacked.pack_rows(["abc", "xyzw", "qq", "p"], 4, 8)
+    tok = np.full(32, -1, np.int32)
+    tok[[0, 2, 8, 16, 24]] = [10, 11, 20, 40, 60]
+    merged, encoded = [], []
+
+    def merge_fn(flat, starts, lens_):
+        merged.append((flat[starts[0]:starts[0] + lens_[0]].tobytes(),
+                       starts.tolist(), lens_.tolist()))
+        return np.array([30, 31], np.int32), np.array([2], np.int32)
+
+    def host_ranks(text):
+        encoded.append(text)
+        return [50, 51, 52]
+
+    clock = StageClock()
+    flat, cuts = tpacked.assemble_rows(
+        tok, np.array([9, -1], np.int32), np.array([3, 0], np.int32),
+        np.array([2, 3]), buf, lens, 3, merge_fn, host_ranks, clock)
+    assert flat.dtype == np.int32 and cuts.dtype == np.int64
+    assert tpacked.split_ids(flat, cuts) == [[10, 11], [20, 30, 31],
+                                             [50, 51, 52]]
+    assert merged == [(b"yzw", [9], [3])] and encoded == ["qq"]
+    assert {"tekken.doc_lists", "tekken.splice.merge",
+            "tekken.overflow_rows"} <= {r.name for r in clock.spans}
+    assert "splice" in clock.times
+
+
+@pytest.mark.parametrize("lo,hi,n", [(8, 64, 61), (2, 8, 8), (4, 4, 3)])
+def test_route_groups_cover_each_doc_once_and_join_in_order(lo, hi, n):
+    """``route_groups`` puts every doc in exactly one group of its route,
+    each group's rows the power-of-two multiple of ``lo`` that holds the
+    route's docs, at most ``hi``; ``encode_route_groups`` joins the
+    groups' results back in input order."""
+    routes = np.random.default_rng(n).choice([1, 2, 3], n, p=[.7, .2, .1])
+    groups = list(tpacked.route_groups(routes, lo, hi))
+    seen = np.concatenate([sel for _, sel, _ in groups])
+    assert sorted(seen.tolist()) == list(range(n))
+    for r, sel, Bg in groups:
+        assert (routes[sel] == r).all() and 0 < sel.size <= Bg
+        want = lo
+        while want < (routes == r).sum() and want < hi:
+            want *= 2
+        assert Bg == want and lo <= Bg <= hi and Bg & (Bg - 1) == 0
+
+    buf = np.zeros((hi, 4), np.uint8)
+    buf[:n, 0] = np.arange(n)
+    lens = np.zeros(hi, np.int32)
+    lens[:n] = np.arange(n) % 3
+    calls = []
+
+    def encode_buffer(sub_buf, sub_len, n_docs, route, clock):
+        calls.append((route, sub_buf.shape[0], n_docs))
+        assert not sub_len[n_docs:].any()
+        return (np.repeat(sub_buf[:n_docs, 0], sub_len[:n_docs]).astype(
+            np.int32), np.concatenate([[0], np.cumsum(sub_len[:n_docs])]))
+
+    flat, cuts = tpacked.encode_route_groups(buf, lens, routes, lo,
+                                             encode_buffer)
+    assert tpacked.split_ids(flat, cuts) == [[i] * (i % 3) for i in range(n)]
+    assert calls == [(r, Bg, sel.size) for r, sel, Bg in groups]

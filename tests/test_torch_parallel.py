@@ -131,6 +131,32 @@ def test_world1_matches_jax(toks, merge):
     assert got[0] == [encode_ranks(t, tok.ranks) for t in texts]
 
 
+@pytest.mark.parametrize("merge", ["device", "host"])
+def test_world1_equals_packed_encoder(toks, merge):
+    """A world-of-one DistributedEncoder and a PackedEncoder on one mixed
+    batch (two route groups, overflowing rows, a 42-byte miss that the
+    packed encoder's device mode merges on the host): the same ids, the
+    oracle's."""
+    from tekken_tpu.oracle import encode_ranks
+
+    from tekken_tpu_torch.ops.packed import PackedEncoder
+
+    tok, port = toks
+    texts = _mixed(random.Random(5))
+    texts[1] = "a " + "zq" * 20 + "j  x"
+    denc = DistributedEncoder(port, mesh=make_dp_mesh(device="cpu"),
+                              rows=16, row_len=R, np_cap=256, merge=merge)
+    penc = PackedEncoder(port, rows=16, row_len=R, np_cap=256,
+                         device="cpu", merge=merge)
+    docs, n_bytes, n_tokens = denc.encode_batch(texts)
+    assert docs == penc.encode_batch(texts)
+    assert docs == [encode_ranks(t, tok.ranks) for t in texts]
+    assert n_bytes == sum(len(t.encode()) for t in texts)
+    assert n_tokens == sum(map(len, docs))
+    assert denc.last_overflow_rows > 0 and penc.stats["overflow_rows"] > 0
+    assert penc.stats["fb_spans"] > 0
+
+
 def test_refusals(toks):
     _, port = toks
     mesh = make_dp_mesh(device="cpu")
