@@ -53,6 +53,8 @@ mergeable ones (ROADMAP.md, queue 3).
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -68,8 +70,8 @@ __all__ = ["P_LANES", "P_SHORT", "PackedEncoder", "StageClock",
            "assemble_rows", "default_np_cap", "doc_routes",
            "encode_route_groups", "host_route", "oracle_merge_fn",
            "pack_rows", "packed_encode", "piece_safe_segments", "probe2",
-           "route_groups", "splice_host_merges", "split_ids",
-           "take_segments"]
+           "route_groups", "single_route", "splice_host_merges",
+           "split_ids", "take_segments"]
 
 P_LANES = 32
 P_SHORT = 8
@@ -516,21 +518,23 @@ def _merge_buckets(tok, w, byte_rank, plen, counts, caps, tables,
 # host side (numpy)
 # --------------------------------------------------------------------- #
 
-def pack_rows(texts, rows: int, row_len: int):
-    """The texts' UTF-8 bytes in a zeroed (rows, row_len) uint8 buffer, one
-    doc a row, and their lengths (int32, 0 past the last doc)."""
-    datas = [t.encode("utf-8") for t in texts]
+def pack_rows(docs, rows: int, row_len: int):
+    """The docs' UTF-8 bytes in a zeroed (rows, row_len) uint8 buffer, one
+    doc a row, and their lengths (int32, 0 past the last doc).  A doc is
+    its bytes, or a text, which is encoded here, once."""
+    datas = [d.encode("utf-8") if isinstance(d, str) else d for d in docs]
     if len(datas) > rows:
         raise ValueError(f"{len(datas)} docs exceed {rows} rows")
-    buf = np.zeros((rows, row_len), dtype=np.uint8)
     lengths = np.zeros(rows, dtype=np.int32)
-    for i, d in enumerate(datas):
-        if len(d) > row_len:
-            raise ValueError(f"doc of {len(d)} bytes exceeds row {row_len}")
-        if d:
-            buf[i, :len(d)] = np.frombuffer(d, dtype=np.uint8)
-        lengths[i] = len(d)
-    return buf, lengths
+    lengths[:len(datas)] = np.fromiter(map(len, datas), np.int32, len(datas))
+    if len(datas) and int(lengths.max()) > row_len:
+        raise ValueError(f"doc of {int(lengths.max())} bytes exceeds row "
+                         f"{row_len}")
+    # a bytearray slice takes a doc's bytes with no numpy array made of it
+    plane = bytearray(rows * row_len)
+    for o, d in zip(range(0, len(datas) * row_len, row_len), datas):
+        plane[o:o + len(d)] = d
+    return np.frombuffer(plane, np.uint8).reshape(rows, row_len), lengths
 
 
 def host_route(buf: np.ndarray) -> int:
@@ -547,18 +551,27 @@ def host_route(buf: np.ndarray) -> int:
     return 1
 
 
-def doc_routes(buf: np.ndarray) -> np.ndarray:
-    """Per-row routing: host_route's predicates row by row (pieces never
-    cross rows).  Returns int8[B]; host_route(buf) == doc_routes(buf).max()
-    for non-empty buffers."""
-    r = np.ones(buf.shape[0], np.int8)
-    is_w = (buf == 32) | ((buf >= 9) & (buf <= 13))
-    ws2 = (is_w[:, 1:] & is_w[:, :-1]).any(axis=1)
-    is_n = (buf >= 48) & (buf <= 57)
-    dig4 = (is_n[:, 3:] & is_n[:, 2:-1] & is_n[:, 1:-2]
-            & is_n[:, :-3]).any(axis=1)
-    r[ws2 | dig4] = 2
-    r[(buf >= 0x80).any(axis=1)] = 3
+# host_route's general-rule predicates on a text: two whitespace bytes in
+# a row, four digits in a row
+_WS2 = re.compile(r"[\t\n\x0b\x0c\r ]{2}").search
+_DIG4 = re.compile(r"[0-9]{4}").search
+
+
+def doc_routes(texts) -> np.ndarray:
+    """Per-doc routing, from the texts: 3 for a text that is not ASCII,
+    else 2 where a general rule's predicate holds, else 1; int8, one a
+    doc.  On ASCII a text's characters are its bytes, so these are
+    host_route's predicates row by row (pieces never cross rows):
+    ``host_route(pack_rows(texts, ...)[0]) == doc_routes(texts).max()``
+    for a non-empty batch.  ``str.isascii`` reads a flag, so only the
+    ASCII docs are scanned; they count toward ``route_scan_docs``."""
+    r = np.full(len(texts), 3, np.int8)
+    n_scan = 0
+    for i, t in enumerate(texts):
+        if t.isascii():
+            n_scan += 1
+            r[i] = 2 if _WS2(t) or _DIG4(t) else 1
+    COUNTERS.add("route_scan_docs", n_scan)
     return r
 
 
@@ -727,23 +740,32 @@ def route_groups(routes, lo: int, hi: int):
             yield r, idx[s:s + Bg], Bg
 
 
-def encode_route_groups(buf, lengths, routes, lo: int, encode_buffer,
-                        clock=None):
-    """Run each ``route_groups(routes, lo, rows)`` sub-batch of a packed
-    (rows, R) batch through ``encode_buffer(sub_buf, sub_len, n_docs,
-    route, clock) -> (flat, cuts)``, on rows cut from ``buf``, and join
-    the groups' results in input order with one gather: (flat, cuts)."""
-    B, R = buf.shape
+def single_route(routes) -> int | None:
+    """The route every doc of a batch takes (1 for an empty batch), or
+    None when its docs take more than one."""
+    if not routes.size:
+        return 1
+    route = int(routes.max())
+    return route if int(routes.min()) == route else None
+
+
+def encode_route_groups(docs, routes, lo: int, hi: int, pack,
+                        encode_buffer, clock=None):
+    """Pack each ``route_groups(routes, lo, hi)`` sub-batch of ``docs``
+    (texts or their bytes) straight into its own (Bg, R) buffer,
+    ``pack(group_docs, Bg) -> (sub_buf, sub_len)``, run it through
+    ``encode_buffer(sub_buf, sub_len, n_docs, route, clock) -> (flat,
+    cuts)``, and join the groups' results in input order with one gather:
+    (flat, cuts)."""
+    if routes.size > hi:
+        raise ValueError(f"{routes.size} docs exceed {hi} rows")
     flats = []
     starts = np.empty(routes.size, dtype=np.int64)
     counts = np.empty(routes.size, dtype=np.int64)
     base = 0
-    for r, sel, Bg in route_groups(routes, lo, B):
+    for r, sel, Bg in route_groups(routes, lo, hi):
         with span("tekken.pack", clock):
-            sub_buf = np.zeros((Bg, R), dtype=np.uint8)
-            sub_buf[:sel.size] = buf[sel]
-            sub_len = np.zeros(Bg, dtype=np.int32)
-            sub_len[:sel.size] = lengths[sel]
+            sub_buf, sub_len = pack([docs[i] for i in sel.tolist()], Bg)
             mark(clock, "route_pack")
         flat, cuts = encode_buffer(sub_buf, sub_len, sel.size, r, clock)
         flats.append(flat)
@@ -796,9 +818,10 @@ def assemble_rows(tok, fb_start, fb_len, bad_rows, buf, lengths,
 
 class PackedEncoder:
     """Host wrapper over the packed device pipeline for (rows, row_len)
-    buffers.  Docs are routed one by one on the host; each route group
-    runs in a power-of-two sub-batch of its own, so one UTF-8 doc does not
-    send a whole batch down the slower route.
+    buffers.  Docs are routed one by one on the host, from their texts
+    (``doc_routes``); each route group is packed into a power-of-two
+    sub-batch of its own, so one UTF-8 doc does not send a whole batch
+    down the slower route.
 
     ``merge="device"`` (default) merges misses of up to ``P_LANES`` (32)
     bytes on the device in the length buckets (the rare longer ones are
@@ -812,8 +835,9 @@ class PackedEncoder:
 
     ``stats`` holds the last encode call's increments of
     ``utils.timing.COUNTERS``: the rows re-encoded on the host after a
-    bucket overflow, the spans merged and spliced on the host and the
-    long bucket's rows merged on the device.
+    bucket overflow, the spans merged and spliced on the host, the
+    long bucket's rows merged on the device and the docs whose route
+    needed a scan of their text.
     ``clock`` (a ``StageClock``, measurement only) records the stage marks
     and the layers' spans."""
 
@@ -834,31 +858,39 @@ class PackedEncoder:
                           else oracle_merge_fn(tokenizer.ranks))
         self.stats = dict.fromkeys(COUNTERS.VIEWS, 0)
 
-    def pack(self, texts):
-        return pack_rows(texts, self._B, self._R)
+    def pack(self, docs, rows: int | None = None):
+        """``pack_rows`` of ``docs`` (texts or their bytes) at this
+        encoder's row length, ``rows`` rows (the encoder's by default)."""
+        return pack_rows(docs, self._B if rows is None else rows, self._R)
 
     def encode_batch(self, texts, clock=None):
         """Per-doc rank lists, in input order."""
         return split_ids(*self._encode_flat(texts, clock))
 
-    def _encode_flat(self, texts, clock=None):
+    def _encode_flat(self, texts, clock=None, datas=None):
         """(flat, cuts): the docs' ranks as one int32 array in input order
-        and the doc cuts (int64, ``len(texts) + 1``)."""
+        and the doc cuts (int64, ``len(texts) + 1``).  ``datas``, the
+        texts' UTF-8 bytes where the caller has them, are packed in place
+        of the texts, so nothing encodes them again."""
         before = dict(COUNTERS.totals)
         try:
-            return self._encode_routes(texts, clock)
+            return self._encode_routes(texts, clock, datas)
         finally:
             self.stats = COUNTERS.since(before)
 
-    def _encode_routes(self, texts, clock):
+    def _encode_routes(self, texts, clock, datas=None):
+        """Route each doc from its text, then pack each route group's
+        buffer once from the docs' bytes: one buffer for a single route,
+        a buffer a route group otherwise."""
+        docs = texts if datas is None else datas
         with span("tekken.pack", clock):
-            buf, lengths = self.pack(texts)
-            routes = doc_routes(buf)[:len(texts)]
-            mixed = len(set(routes.tolist())) > 1
+            routes = doc_routes(texts)
+            route = single_route(routes)
+            if route is not None:
+                buf, lengths = self.pack(docs)
             mark(clock, "route_pack")
-            route = None if mixed else host_route(buf)
-        if mixed:
-            return encode_route_groups(buf, lengths, routes, 8,
+        if route is None:
+            return encode_route_groups(docs, routes, 8, self._B, self.pack,
                                        self._encode_buffer, clock)
         return self._encode_buffer(buf, lengths, len(texts), route, clock)
 

@@ -20,8 +20,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops.packed import (_join, assemble_rows, default_np_cap, doc_routes,
-                          encode_route_groups, host_route, pack_rows,
-                          packed_encode, split_ids)
+                          encode_route_groups, pack_rows, packed_encode,
+                          single_route, split_ids)
 from ..tables import DeviceTables
 from .mesh import dp_sharded, make_dp_mesh, replicated
 
@@ -102,20 +102,24 @@ class DistributedEncoder:
         """texts -> (per-doc rank lists in input order, total bytes, total
         tokens), the same on every rank.
 
-        Routing is per row group as in PackedEncoder: when the batch mixes
-        routes, each route's docs run in their own distributed step of
-        rows a power of two from the mesh size up."""
-        buf, lengths = pack_rows(texts, self._B, self._R)
-        routes = doc_routes(buf)[:len(texts)]
+        Routing is per row group as in PackedEncoder, from the texts:
+        when the batch mixes routes, each route's docs are packed into
+        their own distributed step of rows a power of two from the mesh
+        size up."""
+        datas = [t.encode("utf-8") for t in texts]
+        routes = doc_routes(texts)
         self.last_overflow_rows = 0
-        if len(set(routes.tolist())) > 1:
-            flat, cuts = encode_route_groups(buf, lengths, routes,
-                                             self.mesh.size,
-                                             self._encode_buffer)
+        route = single_route(routes)
+        if route is None:
+            flat, cuts = encode_route_groups(
+                datas, routes, self.mesh.size, self._B,
+                lambda docs, rows: pack_rows(docs, rows, self._R),
+                self._encode_buffer)
         else:
-            flat, cuts = self._encode_buffer(buf, lengths, len(texts),
-                                             host_route(buf))
-        return split_ids(flat, cuts), int(lengths.sum()), int(flat.size)
+            buf, lengths = pack_rows(datas, self._B, self._R)
+            flat, cuts = self._encode_buffer(buf, lengths, len(texts), route)
+        return (split_ids(flat, cuts), sum(map(len, datas)),
+                int(flat.size))
 
     def _encode_buffer(self, buf, lengths, n_docs: int, route: int,
                        clock=None):

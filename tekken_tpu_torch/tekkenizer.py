@@ -312,15 +312,21 @@ class Tekkenizer:
             before = dict(COUNTERS.totals)
             COUNTERS.add("encode_calls", 1)
             with span("tekken.plan", clock):
-                rows, plans, n_bytes = self._cut_oversize(texts)
-                batches = self._row_batches(rows)
+                # each text's UTF-8 bytes, made once: the plan reads their
+                # sizes and the packed encoder packs them
+                datas = [t.encode("utf-8") for t in texts]
+                sizes = np.fromiter(map(len, datas), np.int64, len(datas))
+                n_bytes = int(sizes.sum())
+                rows, datas, sizes, plans = self._cut_oversize(texts, datas,
+                                                               sizes)
+                batches = self._row_batches(sizes)
             if root is not None:
                 root.attrs.update(docs=len(texts), bytes=n_bytes)
             parts = []
-            for sub in batches:
+            for a, b in batches:
                 with span("tekken.plan", clock):
-                    enc = self._get_packed_encoder(sub)
-                parts.append(enc._encode_flat(sub, clock=clock))
+                    enc = self._get_packed_encoder(rows[a:b], sizes[a:b])
+                parts.append(enc._encode_flat(rows[a:b], clock, datas[a:b]))
             self._last_engine = "packed-device"
             with span("tekken.public_ids", clock):
                 flat, cuts = parts[0] if len(parts) == 1 else _join(parts)
@@ -376,36 +382,41 @@ class Tekkenizer:
                         if isinstance(part, int) else part)], bos, eos)
         return result
 
-    def _cut_oversize(self, texts):
-        """(rows, plans, n_bytes), n_bytes the UTF-8 bytes of ``texts``.
-        Without a doc over MAX_BATCH_BYTES / 8 bytes the rows are ``texts``
-        and plans is None.  Otherwise each such doc is cut into piece-safe
-        segments (the plan of CorpusEncoder.encode_stream): a segment that
-        fits becomes a row, the pieces that do not are merged on the host
-        now; a doc's plan lists, in order, the indices of its rows and the
-        host-merged rank lists."""
+    def _cut_oversize(self, texts, datas, sizes):
+        """(rows, datas, sizes, plans) from ``texts``, their UTF-8 bytes
+        ``datas`` and the bytes' sizes (int64).  Without a doc over
+        MAX_BATCH_BYTES / 8 bytes the rows are ``texts`` and plans is None.
+        Otherwise each such doc is cut into piece-safe segments (the plan
+        of CorpusEncoder.encode_stream): a segment that fits becomes a row,
+        the pieces that do not are merged on the host now; a doc's plan
+        lists, in order, the indices of its rows and the host-merged rank
+        lists.  ``datas`` and ``sizes`` are then the rows' (a segment is
+        encoded once, when it is cut)."""
         budget = MAX_BATCH_BYTES // 8
-        sizes = [len(t.encode("utf-8")) for t in texts]
-        over = [n > budget for n in sizes]
-        if not any(over):
-            return texts, None, sum(sizes)
+        over = sizes > budget
+        if not over.any():
+            return texts, datas, sizes, None
         rows: list[str] = []
+        row_datas: list[bytes] = []
         plans: list[list] = []
-        for t, oversize in zip(texts, over):
+        for t, d, oversize in zip(texts, datas, over.tolist()):
             if not oversize:
                 plans.append([len(rows)])
                 rows.append(t)
+                row_datas.append(d)
                 continue
             plan: list = []
             for kind, val in piece_safe_segments(t, budget):
                 if kind == "d":
                     plan.append(len(rows))
                     rows.append(val)
+                    row_datas.append(val.encode("utf-8"))
                 else:
                     plan.append(self._merge_pieces(
                         [val] if kind == "h" else val))
             plans.append(plan)
-        return rows, plans, sum(sizes)
+        return rows, row_datas, np.fromiter(
+            map(len, row_datas), np.int64, len(row_datas)), plans
 
     def _merge_pieces(self, pieces: list[str]) -> list[int]:
         """The ranks of pre-tokenization pieces, each merged on its own on
@@ -417,15 +428,14 @@ class Tekkenizer:
         return np.asarray(toks).tolist()
 
     @staticmethod
-    def _row_batches(texts):
-        """``texts`` (none over MAX_BATCH_BYTES / 8 bytes) in consecutive
-        sub-batches whose packed buffers each hold at most MAX_BATCH_BYTES
-        (one sub-batch when the whole batch fits)."""
-        max_len = max((len(t.encode("utf-8")) for t in texts), default=1)
-        rows = MAX_BATCH_BYTES // _pow2(max_len, 256)
-        if len(texts) <= rows:
-            return [texts]
-        return [texts[i:i + rows] for i in range(0, len(texts), rows)]
+    def _row_batches(sizes):
+        """The (start, stop) rows of consecutive sub-batches of docs of
+        UTF-8 ``sizes`` (none over MAX_BATCH_BYTES / 8 bytes) whose packed
+        buffers each hold at most MAX_BATCH_BYTES (one sub-batch when the
+        whole batch fits)."""
+        n = sizes.size
+        rows = MAX_BATCH_BYTES // _pow2(int(sizes.max()) if n else 1, 256)
+        return [(a, min(a + rows, n)) for a in range(0, max(n, 1), rows)]
 
     @property
     def last_batch_stats(self) -> dict:
@@ -434,13 +444,19 @@ class Tekkenizer:
         bucket overflow (``overflow_rows``), spans merged and spliced on the
         host (``fb_spans``), misses over 8 bytes merged on the device
         (``device_long_rows``), docs whose ids were assembled from the flat
-        rank array (``flat_id_docs``: all but the oversize docs)."""
+        rank array (``flat_id_docs``: all but the oversize docs), rows whose
+        route needed a scan of their text (``route_scan_docs``: the ASCII
+        rows)."""
         return self._last_batch_stats
 
-    def _get_packed_encoder(self, texts):
+    def _get_packed_encoder(self, texts, sizes=None):
         """The packed encoder of the batch's shape bucket (the batch fits
-        MAX_BATCH_BYTES: ``_row_batches`` splits it first)."""
-        max_len = max((len(t.encode("utf-8")) for t in texts), default=1)
+        MAX_BATCH_BYTES: ``_row_batches`` splits it first); ``sizes``, the
+        texts' UTF-8 sizes where the caller has them."""
+        if sizes is None:
+            sizes = np.fromiter((len(t.encode("utf-8")) for t in texts),
+                                np.int64, len(texts))
+        max_len = int(sizes.max()) if sizes.size else 1
         rows = _pow2(max(1, len(texts)), 8)
         row_len = _pow2(max_len, 256)
         key = (rows, row_len)

@@ -16,7 +16,8 @@ stage timer, and the encode path's recorder:
 - ``COUNTERS``, the process-wide counts of the work done (kernel launches,
   encode calls, host-merged spans, device-merged long misses, overflow
   rows, readback bytes, the uploaded planes' bytes and their live bytes,
-  decode calls, tokens and bytes, docs given ids from the flat array).
+  decode calls, tokens and bytes, docs given ids from the flat array,
+  docs routed by a scan of their text).
 
 ``Tekkenizer.decode_batch(clock=...)`` records its spans on the same
 clock (``tekken.decode_batch`` and its children).
@@ -124,7 +125,10 @@ class Counters:
       included) and the bytes the device decoded;
     - ``flat_id_docs``: docs whose public ids ``Tekkenizer.encode_batch``
       assembled from the flat rank array (all but those it cut as
-      oversize).
+      oversize);
+    - ``route_scan_docs``: docs whose route ``ops.packed.doc_routes``
+      found by a scan of their text (the ASCII ones; a text that is not
+      ASCII takes route 3 from its flag).
 
     A call's own counts are the difference of ``totals`` across it:
     ``since`` gives them as ``PackedEncoder.stats`` and
@@ -132,11 +136,13 @@ class Counters:
 
     NAMES = ("encode_calls", "host_merge_spans", "device_long_rows",
              "overflow_rows", "readback_bytes", "plane_bytes", "text_bytes",
-             "decode_calls", "decode_tokens", "decode_bytes", "flat_id_docs")
+             "decode_calls", "decode_tokens", "decode_bytes", "flat_id_docs",
+             "route_scan_docs")
     # the per-call views' keys and the totals they read
     VIEWS = {"overflow_rows": "overflow_rows", "fb_spans": "host_merge_spans",
              "device_long_rows": "device_long_rows",
-             "flat_id_docs": "flat_id_docs"}
+             "flat_id_docs": "flat_id_docs",
+             "route_scan_docs": "route_scan_docs"}
 
     def __init__(self):
         self.launches: dict[str, int] = {}
@@ -147,9 +153,9 @@ class Counters:
 
     def since(self, before: dict[str, int]) -> dict[str, int]:
         """The rows re-encoded on the host, the spans merged on the host,
-        the long bucket's rows merged on the device and the docs whose ids
-        were assembled from the flat array since ``before``, a copy of
-        ``totals``."""
+        the long bucket's rows merged on the device, the docs whose ids
+        were assembled from the flat array and the docs whose route needed
+        a scan since ``before``, a copy of ``totals``."""
         return {view: self.totals[name] - before[name]
                 for view, name in self.VIEWS.items()}
 

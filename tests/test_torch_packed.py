@@ -269,7 +269,8 @@ def test_default_encoder_splices_only_misses_over_32_bytes(toks, monkeypatch):
     assert min(spliced) > 32 and len(spliced) == n_host
     assert port.last_batch_stats == {"overflow_rows": 0, "fb_spans": n_host,
                                      "device_long_rows": n_long,
-                                     "flat_id_docs": len(texts)}
+                                     "flat_id_docs": len(texts),
+                                     "route_scan_docs": len(texts) - 1}
 
 
 def test_long_bucket_device_merge(toks, monkeypatch):
@@ -405,19 +406,114 @@ def test_route_groups_cover_each_doc_once_and_join_in_order(lo, hi, n):
             want *= 2
         assert Bg == want and lo <= Bg <= hi and Bg & (Bg - 1) == 0
 
-    buf = np.zeros((hi, 4), np.uint8)
-    buf[:n, 0] = np.arange(n)
-    lens = np.zeros(hi, np.int32)
-    lens[:n] = np.arange(n) % 3
+    # doc i is i % 3 bytes of value i; each group packs its own buffer
+    docs = [bytes([i]) * (i % 3) for i in range(n)]
     calls = []
 
     def encode_buffer(sub_buf, sub_len, n_docs, route, clock):
         calls.append((route, sub_buf.shape[0], n_docs))
-        assert not sub_len[n_docs:].any()
+        assert not sub_len[n_docs:].any() and not sub_buf[n_docs:].any()
         return (np.repeat(sub_buf[:n_docs, 0], sub_len[:n_docs]).astype(
             np.int32), np.concatenate([[0], np.cumsum(sub_len[:n_docs])]))
 
-    flat, cuts = tpacked.encode_route_groups(buf, lens, routes, lo,
-                                             encode_buffer)
+    flat, cuts = tpacked.encode_route_groups(
+        docs, routes, lo, hi, lambda d, rows: tpacked.pack_rows(d, rows, 4),
+        encode_buffer)
     assert tpacked.split_ids(flat, cuts) == [[i] * (i % 3) for i in range(n)]
     assert calls == [(r, Bg, sel.size) for r, sel, Bg in groups]
+
+
+_WS6 = "\t\n\x0b\x0c\r "
+# one-doc batches: (name, text)
+ROUTE_HAND = {"empty": "", "tab": "\t", "two_spaces": "  ",
+              "digits3": "a 123 b", "digits4": "a 1234 b", "nul": "a\x00b",
+              "nul_pair": "\x00\x00", "e_acute": "café", "han": "中文",
+              "emoji": "\U0001f600", "digits_split": "12a34",
+              **{f"ws_{ord(a):02x}_{ord(b):02x}": f"x{a}{b}y"
+                 for a in _WS6 for b in _WS6}}
+
+
+def _random_docs(seed, n=300):
+    """Short docs over whitespace, digits, NUL, letters, é, 中 and 😀,
+    most of them ASCII."""
+    rng = random.Random(seed)
+    ascii_ = _WS6 + "0123456789\x00ab"
+    docs = []
+    for _ in range(n):
+        alpha = ascii_ + ("é中\U0001f600" if rng.random() < 0.3 else "")
+        docs.append("".join(rng.choice(alpha)
+                            for _ in range(rng.randint(0, 12))))
+    return docs
+
+
+@pytest.mark.parametrize(
+    "texts", [[t] for t in ROUTE_HAND.values()]
+    + [_random_docs(s) for s in (1, 2, 3)],
+    ids=list(ROUTE_HAND) + ["random1", "random2", "random3"])
+def test_doc_routes_from_texts_match_the_plane(texts):
+    """The routes taken from the texts (``str.isascii``, then the general
+    rules' predicates on the ASCII ones) equal the JAX package's
+    ``doc_routes`` on the texts' packed plane, row for row, and their
+    largest is ``host_route`` of the plane; only the ASCII docs count
+    toward ``route_scan_docs``."""
+    from tekken_tpu.ops.packed import doc_routes as jax_doc_routes
+    from tekken_tpu.ops.packed import host_route as jax_host_route
+
+    from tekken_tpu_torch.utils.timing import COUNTERS
+
+    before = COUNTERS.totals["route_scan_docs"]
+    routes = tpacked.doc_routes(texts)
+    scanned = COUNTERS.totals["route_scan_docs"] - before
+    R = max(8, max(len(t.encode()) for t in texts))
+    buf, _ = tpacked.pack_rows(texts, len(texts) + 1, R)
+    assert routes.dtype == np.int8 and routes.shape == (len(texts),)
+    assert routes.tolist() == jax_doc_routes(buf)[:len(texts)].tolist()
+    assert int(routes.max()) == tpacked.host_route(buf) == \
+        jax_host_route(buf)
+    assert scanned == sum(t.isascii() for t in texts)
+
+
+def test_route_groups_packed_from_bytes_equal_cut_from_the_plane(
+        toks, monkeypatch):
+    """A batch of routes 1, 2 and 3 through ``PackedEncoder``: each route
+    group packed straight from the docs' bytes gives the same flat ranks
+    and cuts as the group's rows cut out of the whole batch's plane (the
+    reference below), and the oracle's ranks; the encoder packs one
+    buffer a group and never the whole plane."""
+    tok, port = toks
+    rng = random.Random(23)
+    texts = [t for r in (1, 2, 3) for t in ROUTE_TEXTS[r](rng)[:5]]
+    rng.shuffle(texts)
+    enc = port._get_packed_encoder(texts)
+    datas = [t.encode() for t in texts]
+    packs = []
+    real = enc.pack
+    monkeypatch.setattr(enc, "pack", lambda docs, rows=None: packs.append(
+        (rows, len(docs))) or real(docs, rows))
+    flat, cuts = enc._encode_flat(texts, datas=datas)
+
+    routes = tpacked.doc_routes(texts)
+    groups = list(tpacked.route_groups(routes, 8, enc._B))
+    assert sorted({r for r, _, _ in groups}) == [1, 2, 3]
+    assert packs == [(Bg, sel.size) for _, sel, Bg in groups]
+    buf, lens = tpacked.pack_rows(texts, enc._B, enc._R)
+    flats, starts, counts, base = [], {}, {}, 0
+    for r, sel, Bg in groups:
+        sub_buf = np.zeros((Bg, enc._R), np.uint8)
+        sub_buf[:sel.size] = buf[sel]
+        sub_len = np.zeros(Bg, np.int32)
+        sub_len[:sel.size] = lens[sel]
+        f, c = enc._encode_buffer(sub_buf, sub_len, sel.size, r)
+        for j, i in enumerate(sel.tolist()):
+            starts[i], counts[i] = base + c[j], c[j + 1] - c[j]
+        flats.append(f)
+        base += f.size
+    want, want_cuts = tpacked.take_segments(
+        np.concatenate(flats), [starts[i] for i in range(len(texts))],
+        [counts[i] for i in range(len(texts))])
+    assert np.array_equal(flat, want) and np.array_equal(cuts, want_cuts)
+    assert tpacked.split_ids(flat, cuts) == [encode_ranks(t, tok.ranks)
+                                             for t in texts]
+    # texts in place of their bytes: the same result
+    flat2, cuts2 = enc._encode_flat(texts)
+    assert np.array_equal(flat2, flat) and np.array_equal(cuts2, cuts)

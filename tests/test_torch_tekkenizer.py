@@ -135,7 +135,8 @@ def test_oversize_batch_splits_into_row_batches(merged_tokenizer,
     shapes = []
     real = port._get_packed_encoder
     monkeypatch.setattr(port, "_get_packed_encoder",
-                        lambda sub: shapes.append(len(sub)) or real(sub))
+                        lambda sub, *sizes: shapes.append(len(sub))
+                        or real(sub, *sizes))
     got = port.encode_batch(texts, True, True)
     ns = merged_tokenizer.num_special_tokens()
     want = [[port.bos_id()] + [r + ns for r in encode_ranks(t, port.ranks)]
@@ -145,6 +146,45 @@ def test_oversize_batch_splits_into_row_batches(merged_tokenizer,
     # one 513-byte piece: no device row holds it, the host merges it
     assert port.encode_batch(["z" * 513]) == [
         [r + ns for r in encode_ranks("z" * 513, port.ranks)]]
+
+
+class _CountedText(str):
+    """A text that counts its ``encode`` calls."""
+
+    encodes = 0
+
+    def encode(self, *a, **kw):
+        self.encodes += 1
+        return str.encode(self, *a, **kw)
+
+
+def test_encode_batch_encodes_each_text_once(merged_tokenizer, monkeypatch):
+    """``encode_batch`` UTF-8 encodes each text once, for its plan and its
+    packing alike: a batch of routes 1, 2 and 3, an empty doc and a doc
+    cut as oversize (MAX_BATCH_BYTES patched to 4096) gives the oracle's
+    ids with BOS and EOS, and ``route_scan_docs`` counts the ASCII rows
+    (the oversize doc's segments are rows)."""
+    import tekken_tpu_torch.tekkenizer as ttk
+    from tekken_tpu.oracle import encode_ranks
+    from tekken_tpu_torch.ops.packed import piece_safe_segments
+
+    port = _port(merged_tokenizer)
+    monkeypatch.setattr(ttk, "MAX_BATCH_BYTES", 4096)
+    plain = ["Hello, World!", "two  spaces 123456", "café 中文 \U0001f600",
+             "", ("it's a test of words. " * 60)[:1300], "don't"]
+    texts = [_CountedText(t) for t in plain]
+    got = port.encode_batch(texts, True, True)
+    assert [t.encodes for t in texts] == [1] * len(texts)
+    ns = merged_tokenizer.num_special_tokens()
+    assert got == [[port.bos_id()] + [r + ns for r in encode_ranks(
+        t, port.ranks)] + [port.eos_id()] for t in plain]
+    rows = [s for t in plain
+            for s in ([t] if len(t.encode()) <= 512 else
+                      [v for k, v in piece_safe_segments(t, 512)
+                       if k == "d"])]
+    assert len(rows) > len(plain)
+    assert port.last_batch_stats["route_scan_docs"] == sum(
+        r.isascii() for r in rows)
 
 
 def test_exports_cover_jax():
